@@ -1,0 +1,422 @@
+"""Measurement backends for the tuner.
+
+CLTune measures one thing: wall-clock kernel time on the attached OpenCL
+device.  Here that device is a CUDA GPU, and the measurement stays
+pluggable so that the search machinery can also run against a structural
+model of the device where no card is attached (the CPU tests).
+
+Two evaluators, one interface:
+
+* :class:`WallClockEvaluator` — CUDA-event median timing of the built
+  kernel on the card, verified against the kernel's oracle; the faithful
+  CLTune measurement.  ``device="cpu"`` times the kernels' plain PyTorch
+  versions on the host, for tests at small shapes.
+* :class:`AnalyticalEvaluator` — a structural model of the kernel on a
+  :class:`~repro_torch.core.profiles.DeviceProfile` (supplied by the
+  kernel's ``analytical_model``), with seeded multiplicative noise so the
+  paper's stochastic-search experiments see realistic measurement jitter
+  without a device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from . import verify
+from .artifacts import (PROVENANCE_NONE, ArtifactStore, CompiledArtifact,
+                        spec_fingerprint)
+from .failures import (CompileError, EvaluationError, InfeasibleConfigError,
+                       MeasureError, VerificationFailure)
+from .metrics import Metrics
+from .profiles import DeviceProfile, resolve_profile
+from .space import Config
+
+
+@dataclasses.dataclass
+class KernelSpec:
+    """Everything the evaluators may need about one tunable kernel.
+
+    ``build(config)`` returns a callable implementing the kernel for that
+    parameter configuration (the analogue of CLTune recompiling the OpenCL
+    source with new ``#define``\\ s).  When the callable has a
+    ``compile()`` method, the wall-clock evaluator calls it on a CUDA
+    device before the first launch; it does the host-side build (``nvcc``
+    and loading the library) and returns the build's content address.
+    The remaining fields feed the different evaluators and the
+    verification path; only the ones the chosen evaluator needs must be
+    provided.
+    """
+
+    name: str
+    build: Callable[[Config], Callable]
+    #: host arguments (tensors on the CPU) for wall-clock runs + verification;
+    #: the evaluator moves them to its device
+    make_args: Optional[Callable[[np.random.Generator], Tuple]] = None
+    #: structural time model: (config, profile) -> seconds (math.inf = infeasible)
+    analytical_model: Optional[Callable[[Config, DeviceProfile], float]] = None
+    #: reference oracle taking the same args, for SetReference verification
+    reference: Optional[Callable] = None
+    #: static metadata (shape key etc.) used by the results cache
+    meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass
+class Measurement:
+    """Outcome of evaluating one configuration."""
+
+    time_s: float                       # objective; inf = failed
+    ok: bool
+    verified: Optional[bool] = None     # None = verification not performed
+    compile_s: float = 0.0              # build cost (also real: the paper
+                                        # notes recompilation limits tuning
+                                        # throughput)
+    error: str = ""
+    detail: Dict[str, float] = dataclasses.field(default_factory=dict)
+    #: full per-repeat sample vector + derived stats; None on failure or
+    #: from legacy backends that only produced a scalar
+    metrics: Optional[Metrics] = None
+
+    @property
+    def pruned(self) -> bool:
+        """True when the measurement was aborted by early-stop pruning."""
+        return bool(self.detail.get("pruned", False))
+
+    def as_metrics(self) -> Optional[Metrics]:
+        """The structured metrics behind this measurement.  Falls back to a
+        single-sample vector built from ``time_s`` for backends that never
+        attached one; None for failed measurements (scalarizes to inf)."""
+        if not self.ok:
+            return None
+        if self.metrics is not None:
+            return self.metrics
+        if not math.isfinite(self.time_s):
+            return None
+        return Metrics(samples=(self.time_s,), compile_s=self.compile_s)
+
+
+def median_prune_loop(sample: Callable[[], float], repeats: int,
+                      prune_threshold_s: Optional[float] = None,
+                      min_samples: int = 1) -> Tuple[List[float], bool]:
+    """Collect up to ``repeats`` timing samples with early-stop pruning.
+
+    After each sample the running median is compared against
+    ``prune_threshold_s`` (typically ``k × incumbent``); once it exceeds
+    the threshold the loop aborts.  Returns ``(samples, pruned)``.  A
+    configuration whose samples stay below the threshold can never be
+    pruned, so the incumbent — or anything better — survives; real
+    timing is noisy, though, so ``min_samples`` guards against a single
+    outlier sample aborting a genuinely fast configuration (wall-clock
+    measurement passes 2: pruning only ever triggers on a median of at
+    least two samples).
+    """
+    samples: List[float] = []
+    for _ in range(max(1, repeats)):
+        samples.append(float(sample()))
+        if (prune_threshold_s is not None
+                and len(samples) >= max(1, min_samples)
+                and len(samples) < repeats
+                and float(np.median(samples)) > prune_threshold_s):
+            return samples, True
+    return samples, False
+
+
+class Evaluator:
+    """Interface: ``prepare`` -> :class:`CompiledArtifact` -> ``measure``.
+
+    Evaluation splits into two typed phases for the parallel engine:
+
+    * ``prepare(spec, config)`` — the compilation phase.  Must be safe to
+      run concurrently from a worker pool and returns a
+      :class:`~repro_torch.core.artifacts.CompiledArtifact` carrying the
+      content-address, the device-profile key, stats, the measurable
+      payload and its provenance (fresh-compile vs persistent-store hit).
+      It does host work only: a launch from a worker thread would run on
+      the card beside another configuration's timed samples.  The default
+      prepares nothing and returns a payload-free artifact with
+      ``provenance="none"``.
+    * ``measure(spec, config, prepared, prune_threshold_s)`` — the launch,
+      verification and timing phase, always serialized by the engine so
+      measurements never contend.  ``prune_threshold_s`` enables
+      early-stop pruning where the backend supports it.
+
+    Evaluators that can skip compilation consult ``artifact_store`` (an
+    :class:`~repro_torch.core.artifacts.ArtifactStore`, attached by the
+    Tuner or set directly; None = no persistence) inside ``prepare``.
+
+    **Failure contract**: a configuration that cannot be evaluated raises
+    a typed :class:`~repro_torch.core.failures.EvaluationError` subclass —
+    :class:`~repro_torch.core.failures.CompileError` from ``prepare``,
+    :class:`~repro_torch.core.failures.MeasureError` (or
+    :class:`~repro_torch.core.failures.VerificationFailure`) from
+    ``measure`` — carrying the original exception as ``__cause__``.  The
+    evaluation engine converts these into ``inf``-time trials with
+    structured FailureRecords.  Failed compiles are never persisted to the
+    store.
+
+    ``objective`` adapts an evaluator to a bare strategy's
+    ``Config -> float`` objective, outside the engine.
+    """
+
+    name = "base"
+    #: persistent compile-artifact store; None disables persistence.
+    artifact_store: Optional[ArtifactStore] = None
+    #: the DeviceProfile this evaluator models/measures against, when it
+    #: has one.  None means "no modeled device".
+    profile: Optional[Any] = None
+
+    def _evaluate(self, spec: KernelSpec, config: Config) -> Measurement:
+        """measure(prepare(...)) with typed errors folded back into failed
+        Measurements — so bare objective adapters keep seeing ``inf``
+        instead of exceptions."""
+        try:
+            return self.measure(spec, config, self.prepare(spec, config))
+        except EvaluationError as e:
+            return _failed(e)
+
+    def prepare(self, spec: KernelSpec, config: Config) -> CompiledArtifact:
+        """Concurrent compile phase; default: nothing to prepare."""
+        return CompiledArtifact(
+            kind=self.name,
+            fingerprint=spec_fingerprint(spec.name, spec.meta, config),
+            profile="", payload=None, provenance=PROVENANCE_NONE)
+
+    def measure(self, spec: KernelSpec, config: Config,
+                prepared: Any = None,
+                prune_threshold_s: Optional[float] = None) -> Measurement:
+        raise NotImplementedError
+
+    def objective(self, spec: KernelSpec) -> Callable[[Config], float]:
+        """Adapt to the strategies' ``Config -> float`` objective."""
+        def _obj(config: Config) -> float:
+            return self._evaluate(spec, config).time_s
+        return _obj
+
+
+def _failed(err: Exception | str, compile_s: float = 0.0) -> Measurement:
+    return Measurement(time_s=math.inf, ok=False, compile_s=compile_s,
+                       error=str(err)[:500])
+
+
+@dataclasses.dataclass
+class _CompiledKernel:
+    """Artifact of WallClockEvaluator.prepare: the built callable."""
+
+    fn: Callable
+    compile_s: float
+
+
+class WallClockEvaluator(Evaluator):
+    """Median-of-N wall-clock timing of the built kernel (CLTune's method).
+
+    ``device`` is where the kernel runs: ``"cuda"`` (the default) times
+    the kernel on the card with CUDA events; ``"cpu"`` times the kernels'
+    plain PyTorch versions on the host with the host clock.  Asking for
+    CUDA on a host without a card raises — a measurement never falls back
+    to the CPU.
+
+    ``prepare`` is host work only: it builds the callable and, on CUDA,
+    calls its ``compile()`` (``nvcc`` and loading the library).  The
+    artifact's fingerprint is the build's content address when the build
+    reports one.  A loaded library does not serialize, so the artifact is
+    *not persistable*.  ``measure`` — serialized by the engine — makes the
+    first launch, verifies it against the oracle, warms up and times,
+    optionally aborting early once the running median exceeds the prune
+    threshold.
+    """
+
+    name = "wallclock"
+
+    def __init__(self, repeats: int = 5, warmup: int = 1,
+                 verify_outputs: bool = True, seed: int = 0,
+                 atol: Optional[float] = None, rtol: Optional[float] = None,
+                 device: "torch.device | str" = "cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "WallClockEvaluator: no CUDA device is available; pass "
+                "device='cpu' to time the plain versions on the host")
+        if self.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {self.device}")
+        self.repeats = repeats
+        self.warmup = warmup
+        self.verify_outputs = verify_outputs
+        self.seed = seed
+        self.atol, self.rtol = atol, rtol
+        #: (spec identity, device args, oracle output): every config of one
+        #: search shares the inputs, so they are made and checked once
+        self._inputs: Optional[Tuple[Any, Tuple, Any]] = None
+
+    def prepare(self, spec: KernelSpec, config: Config):
+        if spec.make_args is None:
+            raise CompileError("WallClockEvaluator requires spec.make_args")
+        try:
+            t0 = time.perf_counter()
+            fn = spec.build(config)
+            build = getattr(fn, "compile", None)
+            digest = (build() if self.device.type == "cuda"
+                      and build is not None else None)
+            compile_s = time.perf_counter() - t0
+        except Exception as e:  # noqa: BLE001 — any build error = failed config
+            raise CompileError(f"{type(e).__name__}: {e}") from e
+        return CompiledArtifact(
+            kind=self.name,
+            fingerprint=digest or spec_fingerprint(
+                spec.name, spec.meta, config, extra=f"seed={self.seed}"),
+            profile="", payload=_CompiledKernel(fn=fn, compile_s=compile_s),
+            stats={"compile_s": compile_s}, compile_s=compile_s,
+            persistable=False)
+
+    def _args_and_reference(self, spec: KernelSpec) -> Tuple[Tuple, Any]:
+        ident = (spec.name, repr(sorted(spec.meta.items())),
+                 spec.make_args, spec.reference)
+        if self._inputs is None or self._inputs[0] != ident:
+            rng = np.random.default_rng(self.seed)
+            args = tuple(torch.as_tensor(x).to(self.device)
+                         for x in spec.make_args(rng))
+            ref_out = (spec.reference(*args)
+                       if self.verify_outputs and spec.reference is not None
+                       else None)
+            self._inputs = (ident, args, ref_out)
+        return self._inputs[1], self._inputs[2]
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def measure(self, spec: KernelSpec, config: Config,
+                prepared=None,
+                prune_threshold_s: Optional[float] = None) -> Measurement:
+        if prepared is None:
+            prepared = self.prepare(spec, config)
+        fn, compile_s = prepared.payload.fn, prepared.payload.compile_s
+        args, ref_out = self._args_and_reference(spec)
+        try:
+            out = fn(*args)
+            self._sync()
+        except Exception as e:  # noqa: BLE001 — a refused launch = failed config
+            raise MeasureError(f"{type(e).__name__}: {e}") from e
+
+        verified: Optional[bool] = None
+        if ref_out is not None:
+            try:
+                verify.assert_trees_close(out, ref_out,
+                                          atol=self.atol, rtol=self.rtol)
+                verified = True
+            except Exception as e:  # verification failure => config is invalid
+                raise VerificationFailure(
+                    f"verification failed: {e}") from e
+        del out
+
+        try:
+            for _ in range(max(0, self.warmup - 1)):
+                fn(*args)
+            self._sync()
+            if self.device.type == "cuda":
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+
+                def _sample() -> float:
+                    start.record()
+                    fn(*args)
+                    end.record()
+                    end.synchronize()
+                    return start.elapsed_time(end) / 1e3
+            else:
+                def _sample() -> float:
+                    t0 = time.perf_counter()
+                    fn(*args)
+                    return time.perf_counter() - t0
+
+            samples, pruned = median_prune_loop(
+                _sample, self.repeats, prune_threshold_s=prune_threshold_s,
+                min_samples=2)
+            t = float(np.median(samples))
+        except Exception as e:  # noqa: BLE001
+            raise MeasureError(f"{type(e).__name__}: {e}") from e
+        detail = {"min_s": float(np.min(samples)),
+                  "max_s": float(np.max(samples)),
+                  "samples": float(len(samples))}
+        if pruned:
+            detail["pruned"] = True
+        return Measurement(time_s=t, ok=True, verified=verified,
+                           compile_s=compile_s, detail=detail,
+                           metrics=Metrics(samples=tuple(samples),
+                                           compile_s=compile_s))
+
+
+class AnalyticalEvaluator(Evaluator):
+    """Structural device model + seeded measurement noise.
+
+    The kernel supplies ``analytical_model(config, profile) -> seconds``
+    (math.inf for configurations that exceed shared memory or are
+    otherwise infeasible on the profile).  We multiply by log-normal noise
+    whose seed is derived from the configuration, so repeated evaluation
+    of the same point is deterministic within one process — matching how
+    a real timing distribution has a per-configuration systematic
+    component plus jitter.  The seed comes from Python's ``hash()``, as in
+    the JAX package, so that a search here and one there agree trial for
+    trial in the same process.
+
+    There is no compile phase: ``prepare`` is the base payload-free
+    :class:`CompiledArtifact` (``provenance="none"``), ``measure`` prices
+    the model directly and ignores the artifact.
+    """
+
+    name = "analytical"
+
+    def __init__(self, profile: Optional[DeviceProfile] = None,
+                 noise_sigma: float = 0.03, seed: int = 0,
+                 repeats: int = 5):
+        self.profile = resolve_profile(profile)
+        self.noise_sigma = noise_sigma
+        self.seed = seed
+        self.repeats = max(1, repeats)
+
+    def _noise_rng(self, config: Config) -> np.random.Generator:
+        h = hash((self.seed,) + tuple(sorted(
+            (k, str(v)) for k, v in config.items()))) & 0xFFFFFFFF
+        return np.random.default_rng(h)
+
+    def _noise_samples(self, config: Config, n: int) -> List[float]:
+        """n deterministic noise factors drawn from one seeded stream."""
+        if self.noise_sigma <= 0:
+            return [1.0] * n
+        rng = self._noise_rng(config)
+        return [float(np.exp(rng.normal(0.0, self.noise_sigma)))
+                for _ in range(n)]
+
+    def measure(self, spec: KernelSpec, config: Config,
+                prepared=None,
+                prune_threshold_s: Optional[float] = None) -> Measurement:
+        if spec.analytical_model is None:
+            raise CompileError(
+                "AnalyticalEvaluator requires spec.analytical_model")
+        try:
+            t = float(spec.analytical_model(config, self.profile))
+        except Exception as e:  # noqa: BLE001
+            raise MeasureError(f"{type(e).__name__}: {e}") from e
+        if not math.isfinite(t):
+            raise InfeasibleConfigError(
+                "analytically infeasible (shared memory/limits)")
+        noise = self._noise_samples(config, self.repeats)
+        samples = tuple(t * n for n in noise)
+        return Measurement(time_s=samples[0], ok=True,
+                           detail={"model_time_s": t},
+                           metrics=Metrics(samples=samples))
+
+
+def make_evaluator(name: str, **kwargs) -> Evaluator:
+    table = {
+        "wallclock": WallClockEvaluator,
+        "analytical": AnalyticalEvaluator,
+    }
+    try:
+        return table[name](**kwargs)
+    except KeyError as e:
+        raise KeyError(f"unknown evaluator {name!r}; known: {sorted(table)}") from e

@@ -1,0 +1,97 @@
+"""Boundaries of the port: it never reaches into JAX or the JAX package,
+and a request for the card never quietly runs on the CPU."""
+
+import ast
+import importlib
+import os
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import (H100_SXM, WallClockEvaluator,  # noqa: E402
+                              device_profile)
+from repro_torch.kernels import matmul as mm_pkg  # noqa: E402
+
+# the package's ``matmul`` attribute is the op; the module holds the wrapper
+mm_mod = importlib.import_module("repro_torch.kernels.matmul.matmul")
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "src", "repro_torch")
+
+
+def _port_files():
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirnames, filenames in os.walk(PORT):
+        assert "torch" not in dirnames and "triton" not in dirnames
+        files += [os.path.join(dirpath, f) for f in filenames
+                  if f.endswith(".py")]
+    return sorted(files)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__")):
+            yield node.args[0].value
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_and_no_jax_package_imports(path):
+    assert os.path.exists(path)
+    bad = [m for m in _imports(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_gpu(monkeypatch):
+    """A host without a card, whatever this one has."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_wallclock_evaluator_defaults_to_the_card_and_raises_without_one(
+        no_gpu):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        WallClockEvaluator()
+    assert WallClockEvaluator(device="cpu").device.type == "cpu"
+
+
+def test_device_profile_needs_the_card_unless_asked_for_the_cpu(no_gpu):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device_profile()
+    assert device_profile("cpu") is H100_SXM
+
+
+def test_matmul_on_cuda_tensors_without_a_card_raises(no_gpu, monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("computed on the CPU")
+
+    monkeypatch.setattr(mm_mod, "gemm_plain", plain_must_not_run)
+    before = dict(mm_mod.LAUNCHES)
+    cfg = {"BLOCK_M": 64, "BLOCK_N": 64, "BLOCK_K": 32}
+    with FakeTensorMode():
+        a = torch.empty(256, 256, device="cuda")
+        b = torch.empty(256, 256, device="cuda")
+        assert a.device.type == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mm_pkg.matmul(a, b, config=cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mm_pkg.matmul(a, b)                  # config from the registry
+    assert mm_mod.LAUNCHES == before
