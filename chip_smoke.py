@@ -4,23 +4,44 @@
     python3 chip_smoke.py --rehearse    # the same control flow on the CPU,
                                         # plain versions only, tiny shapes
 
-It drives the port's main path — the paper's GEMM case study: tune ->
-record -> lookup -> run — through the entry points a user calls, and holds
-every CUDA kernel on that path against its plain PyTorch version and the
-PyTorch oracle.  Phases, each printing its own lines:
+It drives the port's three main paths — tune -> record -> lookup -> run —
+through the entry points a user calls, and holds every CUDA kernel on
+them against its plain PyTorch version and the PyTorch oracle.  Phases,
+each printing its own lines:
 
   1. environment: the card, its power limit, versions, the device profile
   2. build: every GEMM configuration of phase 3, all nvcc runs at once
-  3. kernel vs plain version vs oracle, for an H100 twin of every config the
-     JAX package's GEMM tests sweep, at their shapes and at 2048^3
-  4. the main path at M = N = K = 2048 float32: tune_kernel with the
-     wall-clock evaluator, lookup (provenance "exact"), matmul(config=None);
-     the launch counters are zeroed just before and read just after
-  5. times at 2048^3 (CUDA events over runs of back-to-back launches, the
-     versions taking turns; median and every run): tuned kernel, heuristic
-     config, plain version, torch.matmul as the library yardstick, and the
-     FLOP bound
-  6. one JSON line listing every ported kernel
+  3. GEMM kernel vs plain version vs oracle, for an H100 twin of every
+     config the JAX package's GEMM tests sweep, at their shapes and 2048^3
+  4. the GEMM main path at M = N = K = 2048 float32: tune_kernel with the
+     wall-clock evaluator, lookup (provenance "exact"), matmul(config=None)
+  5. GEMM times at 2048^3: tuned kernel, heuristic config, plain version,
+     torch.matmul as the library yardstick, and the FLOP bound
+  6. build_new: every conv2d and flash configuration of phases 7-10, all
+     nvcc runs at once
+  7. conv sweep: every case of the JAX package's conv2d tests, plus even
+     filters, at its shape and at 4096^2, against conv2d_plain and the
+     oracle (tolerance 1e-4, the JAX tests')
+  8. flash sweep: every case of the JAX package's attention tests, plus
+     Sq > Sk causal (rows that see no key must return the mean of v) and
+     bf16 inputs, at its shape and at the 4096 twin (D = 128), against
+     flash_plain and the oracle (2e-5 and 3e-2 as in the JAX tests; at 4096
+     a float32 bound derived from summation order, flash_bound)
+  9. conv main path: tune_kernel(CONV2D) at 4096^2 3x3 (annealing, the
+     extended space, budget 48), lookup "exact", conv2d(config=None); then
+     conv2d(config=None) at 8192x4096 with 7x7 and 11x11 (heuristic)
+ 10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
+     causal (budget 24), lookup "exact", flash_attention(config=None) on
+     (2, 8, 4096, 128) float32: one launch for all 16 heads
+ 11. conv and flash times (CUDA events, the versions taking turns): each
+     kernel, its plain version, F.conv2d or F.scaled_dot_product_attention
+     as the library yardstick, and the bound
+ 12. one JSON line listing every ported kernel
+
+Each main path zeroes its kernels' launch counters just before it and
+reads them just after.  The searches' budgets (GEMM 32, conv 48, flash
+24) are cut from the declarations' defaults for the time limit: a search
+is bound by nvcc, about 3.6 s per configuration.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last is {"ok": true, "device": {...}}.  Any failure raises
@@ -45,18 +66,28 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+import torch.nn.functional as F  # noqa: E402
+
 from repro_torch.core import (H100_SXM, WallClockEvaluator,  # noqa: E402
                               default_cache, device_profile, lookup_resolved)
+from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import conv2d as cv  # noqa: E402
 from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E402
                                         gemm_reference, heuristic_config,
                                         make_matmul, matmul, smem_footprint)
 from repro_torch.tune import tune_kernel  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/matmul/csrc/gemm.cu"
-#: the TPU kernel bodies the CUDA kernel replaces (JAX package)
+#: each ported kernel's CUDA source
+SOURCES = {"gemm_scratch": SOURCE, "gemm_inplace": SOURCE,
+           "conv2d": "src/repro_torch/kernels/conv2d/csrc/conv2d.cu",
+           "flash_attention": "src/repro_torch/kernels/attention/csrc/flash.cu"}
+#: the TPU kernel bodies the CUDA kernels replace (JAX package)
 REPLACES = {"gemm_scratch": "src/repro/kernels/matmul/matmul.py:54",
-            "gemm_inplace": "src/repro/kernels/matmul/matmul.py:84"}
+            "gemm_inplace": "src/repro/kernels/matmul/matmul.py:84",
+            "conv2d": "src/repro/kernels/conv2d/conv2d.py:75",
+            "flash_attention": "src/repro/kernels/attention/flash.py:34"}
 
 #: the configs and shapes tests/test_kernels_matmul.py sweeps (CONFIGS,
 #: then its TRANS_A, rectangular and bf16 tests), plus a bfloat16
@@ -176,11 +207,10 @@ def time_in_turns(fns, device, rounds=5, iters=50):
 
 def ptxas_info(fn):
     """What ptxas reported for the kernel's build (registers, spills)."""
+    name = fn.build_name
     if fn.address is None:
         return []
-    log = os.path.join(build.BUILD_DIR,
-                       f"gemm-{fn.address.split(':')[1]}.log")
-    with open(log) as f:
+    with open(build.log_path(name, fn.address)) as f:
         return [" ".join(line.split()) for line in f
                 if "registers" in line or "spill" in line]
 
@@ -353,6 +383,428 @@ def phase_times(main_shape, winner, heur, device):
     return record
 
 
+# ---------------------------------------------------------------------------
+# conv2d (paper section V) and flash attention: sweeps, main paths, times
+# ---------------------------------------------------------------------------
+
+#: the JAX package's conv2d test tolerance, used at every size: the kernel
+#: adds the taps in the oracle's order, so only the rounding of single
+#: products and sums separates them
+CONV_TOL = 1e-4
+#: the JAX package's attention test tolerances at the test shapes
+FLASH_TOL = 2e-5
+#: a float32 unit roundoff
+U32 = 2.0 ** -24
+
+#: the configs tests/test_kernels_conv2d.py sweeps
+CONV_CONFIGS = [
+    {"BLOCK_H": 16, "BLOCK_W": 128, "SUB_H": 1, "UNROLL": True,
+     "HALO_MODE": "materialize"},
+    {"BLOCK_H": 32, "BLOCK_W": 128, "SUB_H": 2, "UNROLL": False,
+     "HALO_MODE": "materialize"},
+    {"BLOCK_H": 8, "BLOCK_W": 256, "SUB_H": 4, "UNROLL": True,
+     "HALO_MODE": "materialize"},
+    {"BLOCK_H": 16, "BLOCK_W": 128, "SUB_H": 1, "UNROLL": True,
+     "HALO_MODE": "xla"},
+]
+
+
+def conv_cases():
+    """(name, config, (H, W), (Fh, Fw), weight): every case of
+    tests/test_kernels_conv2d.py, plus even filters (the asymmetric pad)."""
+    cases = [(f"CONFIGS[{i}] {fh}x{fw}", cfg, (64, 256), (fh, fw), 1.0)
+             for i, cfg in enumerate(CONV_CONFIGS)
+             for fh, fw in ((3, 3), (7, 7), (11, 11))]
+    c0 = CONV_CONFIGS[0]
+    return cases + [("non_divisible", c0, (50, 200), (7, 7), 1.0),
+                    ("weight", c0, (32, 128), (3, 3), 2.5),
+                    ("even 4x4", c0, (64, 256), (4, 4), 1.0),
+                    ("even 2x5", c0, (64, 256), (2, 5), 1.0)]
+
+
+def flash_cases():
+    """(name, config, lead dims, Sq, Sk, D, causal, dtype): every case of
+    tests/test_kernels_attention.py (its block sweep at four points), plus
+    Sq > Sk causal (rows with every key masked) and bf16 inputs."""
+    cases = [(f"CONFIGS[{i}] causal={c}", cfg, (), 256, 256, 64, c,
+              "float32")
+             for i, cfg in enumerate([{"BLOCK_Q": 128, "BLOCK_K": 128},
+                                      {"BLOCK_Q": 64, "BLOCK_K": 256}])
+             for c in (True, False)]
+    cases += [
+        ("prefix", {"BLOCK_Q": 64, "BLOCK_K": 128}, (), 128, 512, 64, True,
+         "float32"),
+        ("batched", {"BLOCK_Q": 64, "BLOCK_K": 64}, (2, 4), 128, 128, 64,
+         True, "float32"),
+        ("masked_rows", {"BLOCK_Q": 64, "BLOCK_K": 64}, (), 512, 128, 64,
+         True, "float32"),
+        ("bf16 causal", {"BLOCK_Q": 64, "BLOCK_K": 128}, (), 256, 256, 64,
+         True, "bfloat16"),
+        ("bf16 full", {"BLOCK_Q": 64, "BLOCK_K": 128}, (), 256, 256, 64,
+         False, "bfloat16")]
+    cases += [(f"sweep {bq}x{bk} D{d}", {"BLOCK_Q": bq, "BLOCK_K": bk}, (),
+               256, 256, d, True, "float32")
+              for bq, bk, d in ((64, 64, 64), (128, 256, 64),
+                                (64, 128, 128), (128, 64, 128))]
+    return cases
+
+
+def flash_twin(cfg, D):
+    """The config with BLOCK_K halved until one block's shared memory fits
+    the H100 at head width D (the JAX blocks were sized for TPU memory)."""
+    cfg = dict(cfg)
+    while fa.smem_footprint(cfg, D) > H100_SXM.smem_per_block_optin:
+        cfg["BLOCK_K"] //= 2
+    return cfg
+
+
+def flash_sizes(case, big_s):
+    """The case's own size and its twin at the main path's size: the longer
+    of Sq and Sk at ``big_s``, the ratio kept, D = 128."""
+    _, cfg, lead, sq, sk, d, causal, dtype = case
+    scale = big_s // max(sq, sk)
+    return [(lead, sq, sk, d), (lead, sq * scale, sk * scale, 128)]
+
+
+def conv_inputs(H, W, Fh, Fw, device, seed=0):
+    rng = np.random.default_rng(seed)
+    img = torch.from_numpy(rng.normal(size=(H, W)).astype(np.float32))
+    flt = torch.from_numpy(rng.normal(size=(Fh, Fw)).astype(np.float32))
+    return img.to(device), flt.to(device)
+
+
+def flash_inputs(lead, sq, sk, d, dtype, device, seed=0):
+    rng = np.random.default_rng(seed)
+    def mk(s):
+        x = torch.from_numpy((rng.normal(size=lead + s) * 0.5)
+                             .astype(np.float32))
+        return x.to(device, getattr(torch, dtype))
+    return mk((sq, d)), mk((sk, d)), mk((sk, d))
+
+
+def flash_bound(q, k, v):
+    """A float32 error bound from summation order, from these inputs.
+
+    Each score is a length-D dot product: two orders of summation differ by
+    at most D·u·Σ|q_i k_i|·scale <= D·u·max|q|·max|k|·scale (u = 2^-24),
+    which moves a softmax weight by that factor, twice (the weight and
+    the normaliser).  The output sums Sk weighted rows of v, weights
+    summing to 1: at most Sk·u·max|v| apart.  Hence
+    (Sk·u + 2·D·u·max|q|·max|k|·scale) · max|v|.
+    """
+    sk, d = k.shape[-2:]
+    qn = q.float().norm(dim=-1).max().item()
+    kn = k.float().norm(dim=-1).max().item()
+    ds = d * U32 * qn * kn * d ** -0.5
+    return (sk * U32 + 2 * ds) * v.float().abs().max().item()
+
+
+def flash_tolerance(dtype, sq, q, k, v):
+    """(atol, rtol, why) for the kernel against the oracle."""
+    if dtype == "bfloat16":
+        return BF16_TOL, BF16_TOL, "bf16 test tolerance"
+    if max(sq, k.shape[-2]) <= 512:
+        return FLASH_TOL, FLASH_TOL, "JAX attention tests"
+    return flash_bound(q, k, v), 0.0, "float32 summation-order bound"
+
+
+def phase_build_new(objs, device):
+    """Build every conv2d and flash configuration the sweeps and the main
+    paths' first calls use, one nvcc per build, all started together."""
+    todo = [f for f in objs if getattr(f, "route", "cuda") == "cuda"]
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        with ThreadPoolExecutor(len(todo)) as pool:
+            addresses = set(pool.map(lambda f: f.compile(), todo))
+        print(f"[build-new] {len(addresses)} libraries for {len(todo)} "
+              f"kernel objects in {time.perf_counter() - t0:.2f} s")
+        # the searches prune by these models: they must be what was built
+        for f in todo:
+            mod = cv if isinstance(f, cv.Conv2d) else fa
+            dims = (f.Fh, f.Fw) if mod is cv else (f.D,)
+            want = (mod.block_threads(f.config),
+                    mod.smem_footprint(f.config, *dims))
+            if f.geometry() != want:
+                raise AssertionError(f"{f.config}: built {f.geometry()}, "
+                                     f"modelled {want}")
+    return time.perf_counter() - t0
+
+
+def _check_row(row, kind):
+    print(f"[{kind}-sweep] " + json.dumps(row))
+    if not (row["finite"] and row["share_plain"] <= 1.0
+            and row["share_oracle"] <= 1.0 and row.get("mean_v_ok", True)):
+        raise AssertionError(f"{kind} {row['case']} disagrees: {row}")
+
+
+def phase_conv_sweep(cases, fns, big, device):
+    rows = []
+    for name, cfg, hw, filt, weight in cases:
+        for size in (hw, big):
+            fn = fns[(name, size)]
+            img, f = conv_inputs(*size, *filt, device)
+            out = fn(img, f)
+            sync(device)
+            plain = cv.conv2d_plain(img, f, fn.config, weight)
+            oracle = cv.conv2d_reference(img, f, weight)
+            row = {"case": name, "config": fn.config, "shape": list(size),
+                   "filter": list(filt), "weight": weight,
+                   "route": fn.route,
+                   "finite": bool(torch.isfinite(out).all()),
+                   "err_plain": max_err(out, plain),
+                   "err_oracle": max_err(out, oracle),
+                   "share_plain": tol_share(out, plain, CONV_TOL, CONV_TOL),
+                   "share_oracle": tol_share(out, oracle, CONV_TOL,
+                                             CONV_TOL),
+                   "tol": [CONV_TOL, CONV_TOL]}
+            rows.append(row)
+            _check_row(row, "conv")
+    return rows
+
+
+def phase_flash_sweep(cases, fns, big_s, device):
+    rows = []
+    for case in cases:
+        name, _, _, _, _, _, causal, dtype = case
+        for lead, sq, sk, d in flash_sizes(case, big_s):
+            fn = fns[(name, sq, d)]
+            q, k, v = flash_inputs(lead, sq, sk, d, dtype, device)
+            out = fn(q, k, v)
+            sync(device)
+            plain = fa.flash_plain(q, k, v, fn.config, causal=causal)
+            oracle = fa.attention_reference(q, k, v, causal=causal)
+            atol, rtol, why = flash_tolerance(dtype, sq, q, k, v)
+            row = {"case": name, "config": fn.config,
+                   "shape": list(lead) + [sq, sk, d], "causal": causal,
+                   "dtype": dtype,
+                   "finite": bool(torch.isfinite(out.float()).all()),
+                   "err_plain": max_err(out, plain),
+                   "err_oracle": max_err(out, oracle),
+                   "share_plain": tol_share(out, plain, atol, rtol),
+                   "share_oracle": tol_share(out, oracle, atol, rtol),
+                   "tol": [atol, rtol], "tol_why": why}
+            if causal and sq > sk:
+                # rows that see no key return the mean of v
+                masked = out[..., :sq - sk, :]
+                mean_v = v.float().mean(dim=-2, keepdim=True).expand_as(
+                    masked)
+                row["mean_v_share"] = tol_share(masked, mean_v, atol, rtol)
+                row["mean_v_ok"] = row["mean_v_share"] <= 1.0
+            rows.append(row)
+            _check_row(row, "flash")
+    return rows
+
+
+def _trials(outcome):
+    return [[t.config, t.time * 1e3] for t in outcome.result.trials]
+
+
+def _check_tune(outcome, what):
+    if outcome.result.best is None:
+        raise AssertionError(f"the {what} search found no verified config")
+    # a config that fails verification is a failed trial, so every timed
+    # one — the winner among them — was verified against the oracle
+    if not all(m.verified for m in outcome.measurements.values() if m.ok):
+        raise AssertionError(f"a timed {what} config was not verified")
+
+
+def phase_conv_main(main, big_shapes, device, budget):
+    """tune_kernel(CONV2D) -> lookup (exact) -> conv2d(config=None); then
+    conv2d(config=None) at the paper's image size (heuristic config)."""
+    H, W, Fh, Fw = main
+    shape = {"H": H, "W": W, "Fh": Fh, "Fw": Fw}
+    profile = device_profile(device)
+    cache = default_cache()            # REPRO_TUNE_CACHE: a temporary file
+    evaluator = WallClockEvaluator(atol=CONV_TOL, rtol=CONV_TOL,
+                                   device=device)
+    # the heuristic lacks the extended space's PAD_W and PIPELINE_DEPTH,
+    # so warm-start would drop it: seed it whole, so the kernel is timed
+    seed = dict(cv.heuristic_config(H, W, Fh, Fw), PAD_W=0,
+                PIPELINE_DEPTH=2)
+    for key in cv.LAUNCHES:
+        cv.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    outcome = tune_kernel(cv.CONV2D, shape, strategy="annealing",
+                          budget=budget, seed=0, evaluator=evaluator,
+                          profile=profile, cache=cache, seeds=[seed])
+    tune_s = time.perf_counter() - t0
+    _check_tune(outcome, "conv2d")
+    best = outcome.result.best
+    stats = outcome.engine_stats or {}
+    res = lookup_resolved(cv.CONV2D, shape, profile=profile, cache=cache)
+    if res.provenance != "exact" or res.config != best.config:
+        raise AssertionError(f"conv2d lookup gave {res}")
+    calls = []
+    for size in [main] + list(big_shapes):
+        s = dict(zip(("H", "W", "Fh", "Fw"), size))
+        r = lookup_resolved(cv.CONV2D, s, profile=profile, cache=cache)
+        img, f = conv_inputs(*size, device, seed=1)
+        before = cv.LAUNCHES["conv2d"]
+        out = cv.conv2d(img, f)                 # config=None: the registry
+        sync(device)
+        oracle = cv.conv2d_reference(img, f)
+        call = {"shape": list(size), "provenance": r.provenance,
+                "config": r.config,
+                "route": cv.make_conv2d(*size, r.config).route,
+                "launches": cv.LAUNCHES["conv2d"] - before,
+                "err_oracle": max_err(out, oracle),
+                "share_oracle": tol_share(out, oracle, CONV_TOL, CONV_TOL)}
+        ran = (call["route"] if device.type == "cuda"
+               else "plain version's")
+        print(f"[conv-main] conv2d{tuple(size)} ran the {ran} route "
+              f"({r.provenance} config {r.config})")
+        calls.append(call)
+        want = "exact" if size == main else "heuristic"
+        if r.provenance != want or call["share_oracle"] > 1.0:
+            raise AssertionError(f"conv2d() at {size}: {call}")
+        if device.type == "cuda" and call["launches"] != (
+                call["route"] == "cuda"):
+            raise AssertionError(f"conv2d() at {size} launched "
+                                 f"{call['launches']} kernels: {call}")
+    launches = dict(cv.LAUNCHES)
+    materialized = [t for t in outcome.result.trials
+                    if t.config.get("HALO_MODE") == "materialize"
+                    and np.isfinite(t.time)]
+    record = {
+        "winner": best.config, "winner_ms": best.time * 1e3,
+        "best_kernel_config": min(materialized, key=lambda t: t.time).config
+        if materialized else None,
+        "evaluations": outcome.result.evaluations,
+        "failures_by_type": outcome.failure_summary.get("by_type", {}),
+        "compile_s": stats.get("compile_total_s"),
+        "compile_calls": stats.get("compile_calls"),
+        "tune_wall_s": tune_s, "lookup": res.provenance, "calls": calls,
+        "launches": launches}
+    print("[conv-main] " + json.dumps(record))
+    record["trials"] = _trials(outcome)
+    if device.type == "cuda" and launches["conv2d"] == 0:
+        raise AssertionError("the conv2d kernel was not launched on the path")
+    return record
+
+
+def phase_flash_main(main, op_lead, device, budget):
+    """tune_kernel(FLASH_ATTENTION) -> lookup (exact) ->
+    flash_attention(config=None) on a batch of heads."""
+    Sq, Sk, D = main
+    shape = {"Sq": Sq, "Sk": Sk, "D": D, "causal": True}
+    profile = device_profile(device)
+    cache = default_cache()
+    # the evaluator's own inputs (its seed is 0) set its tolerance
+    tol = flash_bound(*fa.FLASH_ATTENTION.make_args(
+        shape, np.random.default_rng(0)))
+    evaluator = WallClockEvaluator(atol=tol, rtol=0.0, device=device)
+    for key in fa.LAUNCHES:
+        fa.LAUNCHES[key] = 0
+    t0 = time.perf_counter()
+    outcome = tune_kernel(fa.FLASH_ATTENTION, shape, strategy="annealing",
+                          budget=budget, seed=0, evaluator=evaluator,
+                          profile=profile, cache=cache)
+    tune_s = time.perf_counter() - t0
+    _check_tune(outcome, "flash")
+    best = outcome.result.best
+    stats = outcome.engine_stats or {}
+    res = lookup_resolved(fa.FLASH_ATTENTION, shape, profile=profile,
+                          cache=cache)
+    if res.provenance != "exact" or res.config != best.config:
+        raise AssertionError(f"flash lookup gave {res}")
+    q, k, v = flash_inputs(op_lead, Sq, Sk, D, "float32", device, seed=1)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v)           # config=None: the registry
+    sync(device)
+    op_launches = fa.LAUNCHES["flash_attention"] - before
+    launches = dict(fa.LAUNCHES)
+    oracle = fa.attention_reference(q, k, v, causal=True)
+    op_tol = flash_bound(q, k, v)
+    record = {
+        "winner": best.config, "winner_ms": best.time * 1e3,
+        "evaluations": outcome.result.evaluations,
+        "failures_by_type": outcome.failure_summary.get("by_type", {}),
+        "compile_s": stats.get("compile_total_s"),
+        "compile_calls": stats.get("compile_calls"),
+        "tune_wall_s": tune_s, "tune_tol": tol, "lookup": res.provenance,
+        "op_shape": list(op_lead) + [Sq, Sk, D], "op_launches": op_launches,
+        "op_err_oracle": max_err(out, oracle), "op_tol": op_tol,
+        "op_share_oracle": tol_share(out, oracle, op_tol, 0.0),
+        "launches": launches}
+    print("[flash-main] " + json.dumps(record))
+    record["trials"] = _trials(outcome)
+    if device.type == "cuda" and op_launches != 1:
+        raise AssertionError("flash_attention() did not launch the kernel "
+                             "once")
+    if record["op_share_oracle"] > 1.0:
+        raise AssertionError(f"flash_attention() disagrees with the oracle: "
+                             f"{record}")
+    return record
+
+
+def _bound(ops, nbytes):
+    t_ops = ops / H100_SXM.peak_f32_flops
+    t_bytes = nbytes / H100_SXM.hbm_bw
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _time_case(fn, args, plain, library, device, iters, plain_iters,
+               extras=None):
+    """Times of the kernel, its plain version, the library call and any
+    ``extras`` (name -> call), each the median of its runs."""
+    runs = time_in_turns({"kernel": lambda: fn(*args), "library": library,
+                          **(extras or {})}, device, iters=iters)
+    runs["plain"] = time_in_turns({"plain": plain}, device, rounds=3,
+                                  iters=plain_iters)["plain"]
+    rec = {"config": fn.config, "ptxas": ptxas_info(fn),
+           "max_abs_err": max_err(fn(*args), plain())}
+    for name, r in runs.items():
+        key = "ms" if name == "kernel" else f"{name}_ms"
+        rec[key], rec[key + "_runs"] = float(np.median(r)), r
+    return rec
+
+
+def phase_times_new(conv_cases_t, flash_cases_t, device):
+    """CUDA events over runs of back-to-back launches, the versions taking
+    turns: each kernel, its plain version and one library call."""
+    out = {}
+    for label, cfg, size in conv_cases_t:
+        H, W, Fh, Fw = size
+        fn = cv.make_conv2d(H, W, Fh, Fw, cfg)
+        img, f = conv_inputs(*size, device, seed=2)
+        # odd filters: symmetric padding, one library call
+        rec = _time_case(
+            fn, (img, f), lambda: cv.conv2d_plain(img, f, fn.config),
+            lambda: F.conv2d(img[None, None], f[None, None],
+                             padding=(Fh // 2, Fw // 2)),
+            device, iters=50, plain_iters=3,
+            # the oracle's explicit pad, then the library conv: the route
+            # HALO_MODE="xla" takes
+            extras={"xla_route": lambda: cv.conv2d_reference(img, f)})
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            cv.conv_flops(H, W, Fh, Fw), 4.0 * (2 * H * W + Fh * Fw))
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        out[label] = rec
+        print(f"[times] {label}: " + json.dumps(
+            {k: v for k, v in rec.items() if not k.endswith("_runs")}))
+    for label, cfg, (lead, S, D), iters in flash_cases_t:
+        fn = fa.make_flash_attention(S, S, D, cfg, causal=True)
+        q, k, v = flash_inputs(lead, S, S, D, "float32", device, seed=2)
+        q4, k4, v4 = (x.reshape(-1, 1, S, D) for x in (q, k, v))
+        rec = _time_case(
+            fn, (q, k, v),
+            lambda: fa.flash_plain(q, k, v, fn.config, causal=True),
+            lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                   is_causal=True),
+            device, iters=iters, plain_iters=2)
+        heads = int(np.prod(lead)) if lead else 1
+        rec["bound_ms"], rec["bound_by"] = _bound(
+            heads * fa.attention_flops(S, S, D, causal=True),
+            4.0 * heads * 4 * S * D)
+        # no diagonal skipping: the kernel does twice the causal work
+        rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+        out[label] = rec
+        print(f"[times] {label}: " + json.dumps(
+            {k: v for k, v in rec.items() if not k.endswith("_runs")}))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
@@ -361,11 +813,21 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.rehearse:
         device, main_shape, budget = torch.device("cpu"), (256, 256, 256), 6
+        big, conv_main, conv_big = (128, 256), (64, 256, 3, 3), [
+            (128, 256, 7, 7), (128, 256, 11, 11)]
+        big_s, flash_main, flash_lead = 512, (256, 256, 64), (2, 2)
+        conv_budget, flash_budget = 6, 4
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
             return 2
         device, main_shape, budget = torch.device("cuda"), (2048,) * 3, 32
+        # the paper's conv sizes (section V) and the flash declaration's
+        # default shape; the searches' budgets are cut for the time limit
+        big, conv_main, conv_big = (4096, 4096), (4096, 4096, 3, 3), [
+            (8192, 4096, 7, 7), (8192, 4096, 11, 11)]
+        big_s, flash_main, flash_lead = 4096, (4096, 4096, 128), (2, 8)
+        conv_budget, flash_budget = 48, 24
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "tuned_configs.json")
 
@@ -377,22 +839,78 @@ def main(argv=None):
     main_rec = phase_main_path(main_shape, device, budget)
     times = phase_times(main_shape, main_rec["winner"], heur, device)
 
+    ccases, fcases = conv_cases(), flash_cases()
+    conv_fns = {(name, size): cv.make_conv2d(*size, *filt, cfg, weight)
+                for name, cfg, hw, filt, weight in ccases
+                for size in (hw, big)}
+    flash_fns = {}
+    for case in fcases:
+        name, cfg, _, _, _, _, causal, dtype = case
+        for _, sq, sk, d in flash_sizes(case, big_s):
+            flash_fns[(name, sq, d)] = fa.make_flash_attention(
+                sq, sk, d, flash_twin(cfg, d), causal=causal,
+                dtype=getattr(torch, dtype))
+    conv_heur = [cv.make_conv2d(*s, cv.heuristic_config(*s))
+                 for s in [conv_main] + conv_big]
+    flash_heur = fa.make_flash_attention(
+        *flash_main, fa.heuristic_config(*flash_main))
+    new = {}
+    for phase, fn, fargs in [
+            ("build_new", phase_build_new,
+             (list(conv_fns.values()) + conv_heur
+              + list(flash_fns.values()) + [flash_heur], device)),
+            ("conv_sweep", phase_conv_sweep, (ccases, conv_fns, big, device)),
+            ("flash_sweep", phase_flash_sweep,
+             (fcases, flash_fns, big_s, device)),
+            ("conv_main", phase_conv_main,
+             (conv_main, conv_big, device, conv_budget)),
+            ("flash_main", phase_flash_main,
+             (flash_main, flash_lead, device, flash_budget))]:
+        t0 = time.perf_counter()
+        new[phase] = fn(*fargs)
+        print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s")
+    conv_rec, flash_rec = new["conv_main"], new["flash_main"]
+    if conv_rec["best_kernel_config"] is None:
+        raise AssertionError("the conv2d search timed no kernel config")
+    S, D = flash_main[0], flash_main[2]
+    conv_label = "conv {}x{} {}x{}".format(*conv_main)
+    flash_label = "flash {}x{}x{}x{}".format(*flash_lead, S, D)
+    t0 = time.perf_counter()
+    new["times_new"] = phase_times_new(
+        [(conv_label, conv_rec["best_kernel_config"], conv_main),
+         ("conv {}x{} {}x{}".format(*conv_big[-1]),
+          conv_rec["calls"][-1]["config"], conv_big[-1])],
+        [(f"flash {S}x{D}", flash_rec["winner"], ((), S, D), 50),
+         (flash_label, flash_rec["winner"], (flash_lead, S, D), 10)],
+        device)
+    print(f"[phase] times_new: {time.perf_counter() - t0:.1f} s")
+
     line = {"kernels": []}
     for variant in ("gemm_scratch", "gemm_inplace"):
         k = times["kernels"][variant]
         line["kernels"].append({
-            "name": variant, "route": "cuda", "source": SOURCE,
+            "name": variant, "route": "cuda", "source": SOURCES[variant],
             "replaces": REPLACES[variant],
             "launches": main_rec["launches"][variant],
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"],
             "library_ms": times["library_ms"]})
+    for name, rec, label in (("conv2d", conv_rec, conv_label),
+                             ("flash_attention", flash_rec, flash_label)):
+        k = new["times_new"][label]
+        line["kernels"].append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "launches": rec["launches"][name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump({"card": smi, "device": str(device), "sweep": sweep,
-                   "main": main_rec, "times": times, **line}, f, indent=1)
+                   "main": main_rec, "times": times, **new, **line}, f,
+                  indent=1)
     print(json.dumps(line))
     if args.rehearse:
         print("[rehearsal] done; no result line on the CPU")

@@ -1,0 +1,168 @@
+"""Batched/multi-head entry point + tunable declaration for flash attention.
+
+``FLASH_ATTENTION`` is the complete tuning declaration for the shape
+family; ``flash_attention(q, k, v)`` resolves its configuration through
+``repro_torch.core.registry.lookup``.
+
+The space is re-derived for the H100: the JAX package's blocks (BLOCK_Q
+up to 1024, BLOCK_K up to 2048) need megabytes at D = 128, and a Hopper
+block has 227 KB of shared memory and at most 1024 threads.  Both limits
+are constraints of the space (paper section III-A), so an infeasible
+config is pruned and never a failed launch.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from ...core import SearchSpace, Tuner, TuningCache
+from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
+from ...core.registry import AutotunePolicy, Shape, lookup, tunable
+from ...core.space import Config
+from .flash import (analytical_time, block_threads, make_flash_attention,
+                    smem_footprint)
+from .ref import attention_reference
+
+KERNEL_NAME = "flash_attention"
+
+#: block sizes of the H100 space
+BLOCK_Q = (16, 32, 64, 128, 256)
+BLOCK_K = (16, 32, 64, 128, 256)
+
+
+def _shape(Sq: int, Sk: int, D: int, causal: bool = True) -> Dict[str, Any]:
+    return {"Sq": Sq, "Sk": Sk, "D": D, "causal": bool(causal)}
+
+
+def shape_key(Sq: int, Sk: int, D: int, causal: bool = True) -> str:
+    return f"Sq{Sq}_Sk{Sk}_D{D}_{'c' if causal else 'f'}"
+
+
+def heuristic_config(Sq: int, Sk: int, D: int = 128) -> Dict[str, Any]:
+    """64 x 64 blocks where they divide (smaller listed ones where not),
+    BLOCK_K halved until one block's shared memory fits the H100."""
+    def pick(d, cands):
+        for c in cands:
+            if d % c == 0:
+                return c
+        # no candidate divides d: return d itself — likely out of the
+        # declared value list, which the registry's feasibility projection
+        # (project_feasible) repairs to the nearest in-space point
+        return d
+    cfg = {"BLOCK_Q": pick(Sq, (64, 32, 16)),
+           "BLOCK_K": pick(Sk, (64, 32, 16)),
+           "PIPELINE_DEPTH": 2}
+    while (cfg["BLOCK_K"] > BLOCK_K[0]
+           and not H100_SXM.fits_smem(smem_footprint(cfg, D))):
+        cfg["BLOCK_K"] //= 2
+    return cfg
+
+
+def tuning_space(D: int = 128):
+    """(values, constraints) of the H100 space at head width ``D``."""
+    params = {
+        "BLOCK_Q": BLOCK_Q,
+        "BLOCK_K": BLOCK_K,
+        "PIPELINE_DEPTH": (2, 3),
+    }
+    constraints = [
+        (lambda bq: block_threads({"BLOCK_Q": bq}) <= 1024, ("BLOCK_Q",),
+         "at most 1024 threads per block"),
+        (lambda bq, bk: H100_SXM.fits_smem(smem_footprint(
+            {"BLOCK_Q": bq, "BLOCK_K": bk}, D)), ("BLOCK_Q", "BLOCK_K"),
+         "shared memory fits an H100 block (227 KB)"),
+    ]
+    return params, constraints
+
+
+def _space(shape: Shape) -> SearchSpace:
+    Sq, Sk = shape["Sq"], shape["Sk"]
+    params, constraints = tuning_space(shape["D"])
+    sp = SearchSpace()
+    for name, values in params.items():
+        sp.add_parameter(name=name, values=values)
+    for fn, names, label in constraints:
+        sp.add_constraint(fn, names, label)
+    sp.add_constraint(lambda bq: Sq % bq == 0, ("BLOCK_Q",), "Sq % BLOCK_Q")
+    sp.add_constraint(lambda bk: Sk % bk == 0, ("BLOCK_K",), "Sk % BLOCK_K")
+    return sp
+
+
+def _make_args(shape: Shape, rng: np.random.Generator):
+    """Host (CPU) operands; the evaluator moves them to its device."""
+    Sq, Sk, D = shape["Sq"], shape["Sk"], shape["D"]
+    def mk(s):
+        return torch.from_numpy((rng.normal(size=s) * 0.5).astype(np.float32))
+    return mk((Sq, D)), mk((Sk, D)), mk((Sk, D))
+
+
+@tunable(
+    name=KERNEL_NAME,
+    space=_space,
+    heuristic=lambda s: heuristic_config(s["Sq"], s["Sk"], s["D"]),
+    shape_key=lambda s: shape_key(s["Sq"], s["Sk"], s["D"],
+                                  s.get("causal", True)),
+    make_args=_make_args,
+    analytical_model=lambda s, cfg, prof: analytical_time(
+        cfg, prof, s["Sq"], s["Sk"], s["D"]),
+    smem_footprint=lambda s, cfg: smem_footprint(cfg, s["D"]),
+    reference=lambda s: (lambda q, k, v: attention_reference(
+        q, k, v, causal=s.get("causal", True))),
+    default_shapes=(_shape(4096, 4096, 128, causal=True),),
+    defaults={"strategy": "annealing", "budget": 40},
+    tags=("beyond-paper", "attention"))
+def FLASH_ATTENTION(shape: Shape, config: Config):
+    """Flash attention (beyond paper; same tuning methodology)."""
+    return make_flash_attention(shape["Sq"], shape["Sk"], shape["D"], config,
+                                causal=shape.get("causal", True))
+
+
+def lookup_config(Sq: int, Sk: int, D: int, causal: bool = True,
+                  profile: Optional[DeviceProfile] = None,
+                  cache: Optional[TuningCache] = None,
+                  policy: "AutotunePolicy | str | None" = None
+                  ) -> Dict[str, Any]:
+    return lookup(FLASH_ATTENTION, _shape(Sq, Sk, D, causal),
+                  profile=profile, cache=cache, policy=policy)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    config: Optional[Dict[str, Any]] = None,
+                    profile: Optional[DeviceProfile] = None,
+                    policy: "AutotunePolicy | str | None" = None
+                    ) -> torch.Tensor:
+    """q: (..., Sq, D), k/v: (..., Sk, D); the leading dims are heads, all
+    in one launch.  With ``config=None`` the configuration comes from the
+    registry for the profile of ``q``'s device (``profile`` overrides)."""
+    Sq, D = q.shape[-2:]
+    Sk = k.shape[-2]
+    cfg = config or lookup_config(Sq, Sk, D, causal,
+                                  resolve_profile(profile, q.device),
+                                  policy=policy)
+    return make_flash_attention(Sq, Sk, D, cfg, causal=causal,
+                                dtype=q.dtype)(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# legacy tuner integration — thin delegates to the generic API
+# ---------------------------------------------------------------------------
+
+def make_tuner(Sq: int, Sk: int, D: int, *, causal: bool = True,
+               evaluator=None, profile: Optional[DeviceProfile] = None
+               ) -> Tuner:
+    return Tuner.from_tunable(FLASH_ATTENTION, _shape(Sq, Sk, D, causal),
+                              evaluator=evaluator, profile=profile)
+
+
+def tune_flash_attention(Sq: int, Sk: int, D: int, *, causal: bool = True,
+                         strategy: str = "annealing", budget: int = 40,
+                         profile: Optional[DeviceProfile] = None,
+                         record: bool = True, seed: int = 0, **kwargs):
+    from ...tune.api import tune_kernel
+    return tune_kernel(FLASH_ATTENTION, _shape(Sq, Sk, D, causal),
+                       strategy=strategy, budget=budget, profile=profile,
+                       record=record, seed=seed, **kwargs)

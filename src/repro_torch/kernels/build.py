@@ -6,9 +6,10 @@ Each library is built for one configuration: the tunables arrive as
 ``#define``\\ s.  Libraries are cached in ``build/kernels/`` at the root of
 the checkout (found from this file, not from the working directory) under
 a hash of the source bytes, the defines and the compiler flags.  That hash
-is also the build's content address, ``cuda:<digest>``.  A library is
-written under a temporary name and moved into place, so two threads
-building the same configuration never load a half-written file.
+is also the build's content address, ``cuda:<digest>``.  Threads that ask
+for the same configuration at once wait for one ``nvcc`` run; a library is
+written under a temporary name and moved into place, so no process loads a
+half-written file.
 
 Nothing here runs when the module is imported: the CPU tests import every
 module, and this host may have no ``nvcc``.
@@ -37,6 +38,8 @@ NVCC_FLAGS: Tuple[str, ...] = (
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+#: one lock per content address, held while that library is built
+_BUILDING: Dict[str, threading.Lock] = {}
 
 
 def nvcc() -> str:
@@ -76,26 +79,40 @@ def build(source: str, defines: Mapping[str, int], name: str
     library as ``<name>-<digest>.log``."""
     key = digest(source, defines)
     lib = os.path.join(BUILD_DIR, f"{name}-{key}.so")
-    if not os.path.exists(lib):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-",
-                                   suffix=".so")
-        os.close(fd)
-        cmd = [nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", tmp,
-               source]
-        try:
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) for {name} "
-                    f"{dict(defines)}:\n{proc.stderr[-4000:]}")
-            with open(lib[:-3] + ".log", "w") as f:
-                f.write(proc.stdout + proc.stderr)
-            os.replace(tmp, lib)
-        finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+    with _LOCK:
+        building = _BUILDING.setdefault(key, threading.Lock())
+    with building:
+        if not os.path.exists(lib):
+            _compile(source, defines, name, lib)
     return lib, f"cuda:{key}"
+
+
+def _compile(source: str, defines: Mapping[str, int], name: str,
+             lib: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, prefix=f".{name}-",
+                               suffix=".so")
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, *_define_flags(defines), "-o", tmp,
+           source]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) for {name} "
+                f"{dict(defines)}:\n{proc.stderr[-4000:]}")
+        with open(lib[:-3] + ".log", "w") as f:
+            f.write(proc.stdout + proc.stderr)
+        os.replace(tmp, lib)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def log_path(name: str, address: str) -> str:
+    """The compiler's output kept beside the library that ``build`` made
+    under ``name`` with content address ``address`` (``cuda:<digest>``)."""
+    return os.path.join(BUILD_DIR, f"{name}-{address.split(':', 1)[1]}.log")
 
 
 def load(source: str, defines: Mapping[str, int], name: str

@@ -51,6 +51,7 @@ from .. import build
 Config = Dict[str, Any]
 
 SOURCE = os.path.join(os.path.dirname(__file__), "csrc", "gemm.cu")
+BUILD_NAME = "gemm"
 
 DEFAULT_CONFIG: Config = {
     "BLOCK_M": 64, "BLOCK_N": 64, "BLOCK_K": 32,
@@ -161,6 +162,8 @@ class Gemm:
     not happened yet.  A call on CPU tensors runs :func:`gemm_plain`.
     """
 
+    build_name = BUILD_NAME
+
     def __init__(self, M: int, N: int, K: int, config: Optional[Config],
                  dtype: torch.dtype):
         cfg = _merged(config)
@@ -180,7 +183,7 @@ class Gemm:
     def compile(self) -> str:
         if self._lib is None:
             lib, address = build.load(SOURCE, _defines(self.config, self.dtype),
-                                      "gemm")
+                                      BUILD_NAME)
             lib.gemm_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -192,6 +195,12 @@ class Gemm:
             lib.gemm_threads.restype = ctypes.c_int
             self._lib, self.address = lib, address
         return self.address
+
+    def geometry(self) -> Tuple[int, int]:
+        """(threads, shared-memory bytes) of one block, as the build
+        reports them; builds the library if that has not happened yet."""
+        self.compile()
+        return self._lib.gemm_threads(), self._lib.gemm_smem_bytes()
 
     def _check(self, a: torch.Tensor, b: torch.Tensor) -> None:
         a_shape = ((self.K, self.M) if self.config["TRANS_A"]

@@ -11,10 +11,14 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import (H100_SXM, WallClockEvaluator,  # noqa: E402
                               device_profile)
+from repro_torch.kernels import attention as fa_pkg  # noqa: E402
+from repro_torch.kernels import conv2d as cv_pkg  # noqa: E402
 from repro_torch.kernels import matmul as mm_pkg  # noqa: E402
 
 # the package's ``matmul`` attribute is the op; the module holds the wrapper
 mm_mod = importlib.import_module("repro_torch.kernels.matmul.matmul")
+cv_mod = importlib.import_module("repro_torch.kernels.conv2d.conv2d")
+fa_mod = importlib.import_module("repro_torch.kernels.attention.flash")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "src", "repro_torch")
@@ -95,3 +99,43 @@ def test_matmul_on_cuda_tensors_without_a_card_raises(no_gpu, monkeypatch):
         with pytest.raises(RuntimeError, match="CUDA"):
             mm_pkg.matmul(a, b)                  # config from the registry
     assert mm_mod.LAUNCHES == before
+
+
+def test_conv2d_on_cuda_tensors_without_a_card_raises(no_gpu, monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("computed on the CPU")
+
+    monkeypatch.setattr(cv_mod, "conv2d_plain", plain_must_not_run)
+    before = dict(cv_mod.LAUNCHES)
+    with FakeTensorMode():
+        img = torch.empty(64, 256, device="cuda")
+        f = torch.empty(3, 3, device="cuda")
+        for cfg in ({"BLOCK_H": 16, "BLOCK_W": 128},
+                    {"HALO_MODE": "xla"}):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cv_pkg.conv2d(img, f, config=cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cv_pkg.conv2d(img, f)                 # config from the registry
+    assert cv_mod.LAUNCHES == before
+
+
+def test_flash_attention_on_cuda_tensors_without_a_card_raises(no_gpu,
+                                                                monkeypatch):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    def plain_must_not_run(*args, **kwargs):
+        raise AssertionError("computed on the CPU")
+
+    monkeypatch.setattr(fa_mod, "flash_plain", plain_must_not_run)
+    before = dict(fa_mod.LAUNCHES)
+    cfg = {"BLOCK_Q": 64, "BLOCK_K": 64}
+    with FakeTensorMode():
+        q = torch.empty(2, 128, 64, device="cuda")
+        assert q.device.type == "cuda"
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fa_pkg.flash_attention(q, q, q, config=cfg)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            fa_pkg.flash_attention(q, q, q)       # config from the registry
+    assert fa_mod.LAUNCHES == before
