@@ -10,7 +10,8 @@ them against its plain PyTorch version and the PyTorch oracle.  Phases,
 each printing its own lines:
 
   1. environment: the card, its power limit, versions, the device profile
-  2. build: every GEMM configuration of phase 3, all nvcc runs at once
+  2. build: every GEMM configuration of phase 3, all nvcc runs at once;
+     the built threads and shared bytes must equal matmul.py's models
   3. GEMM kernel vs plain version vs oracle, for an H100 twin of every
      config the JAX package's GEMM tests sweep, at their shapes and 2048^3
   4. the GEMM main path at M = N = K = 2048 float32: tune_kernel with the
@@ -18,7 +19,7 @@ each printing its own lines:
   5. GEMM times at 2048^3: tuned kernel, heuristic config, plain version,
      torch.matmul as the library yardstick, and the FLOP bound
   6. build_new: every conv2d and flash configuration of phases 7-10, all
-     nvcc runs at once
+     nvcc runs at once; built threads and shared bytes against the models
   7. conv sweep: every case of the JAX package's conv2d tests, plus even
      filters, at its shape and at 4096^2, against conv2d_plain and the
      oracle (tolerance 1e-4, the JAX tests')
@@ -33,10 +34,13 @@ each printing its own lines:
  10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
      causal (budget 24), lookup "exact", flash_attention(config=None) on
      (2, 8, 4096, 128) float32: one launch for all 16 heads
- 11. conv and flash times (CUDA events, the versions taking turns): each
+ 11. the CUDA kernels one float32 F.scaled_dot_product_attention call
+     launches (one torch.profiler trace): the flash yardstick's route
+ 12. conv and flash times (CUDA events, the versions taking turns): each
      kernel, its plain version, F.conv2d or F.scaled_dot_product_attention
-     as the library yardstick, and the bound
- 12. one JSON line listing every ported kernel
+     as the library yardstick, and the bound (the flash kernel skips the
+     causal blocks above the diagonal; the bound counts the causal half)
+ 13. one JSON line listing every ported kernel
 
 Each main path zeroes its kernels' launch counters just before it and
 reads them just after.  The searches' budgets (GEMM 32, conv 48, flash
@@ -75,7 +79,8 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as cv  # noqa: E402
 from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E402
                                         gemm_reference, heuristic_config,
-                                        make_matmul, matmul, smem_footprint)
+                                        make_matmul, matmul, micro_tile,
+                                        smem_footprint)
 from repro_torch.tune import tune_kernel  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/matmul/csrc/gemm.cu"
@@ -251,6 +256,13 @@ def phase_build(cases, main_shape, device):
             addresses = set(pool.map(lambda f: f.compile(), todo))
         print(f"[build] {len(addresses)} libraries for {len(todo)} "
               f"kernel objects in {time.perf_counter() - t0:.2f} s")
+        # the search prunes by these models: they must be what was built
+        for f in todo:
+            want = (micro_tile(f.config)[2],
+                    smem_footprint(f.config, f.dtype.itemsize))
+            if f.geometry() != want:
+                raise AssertionError(f"GEMM {f.config}: built "
+                                     f"{f.geometry()}, modelled {want}")
     return fns, heur
 
 
@@ -520,10 +532,12 @@ def phase_build_new(objs, device):
               f"kernel objects in {time.perf_counter() - t0:.2f} s")
         # the searches prune by these models: they must be what was built
         for f in todo:
-            mod = cv if isinstance(f, cv.Conv2d) else fa
-            dims = (f.Fh, f.Fw) if mod is cv else (f.D,)
-            want = (mod.block_threads(f.config),
-                    mod.smem_footprint(f.config, *dims))
+            if isinstance(f, cv.Conv2d):
+                want = (cv.block_threads(f.config),
+                        cv.smem_footprint(f.config, f.Fh, f.Fw))
+            else:
+                want = (fa.block_threads(f.config, f.D),
+                        fa.smem_footprint(f.config, f.D, f.dtype.itemsize))
             if f.geometry() != want:
                 raise AssertionError(f"{f.config}: built {f.geometry()}, "
                                      f"modelled {want}")
@@ -760,6 +774,40 @@ def _time_case(fn, args, plain, library, device, iters, plain_iters,
     return rec
 
 
+def phase_sdpa_route(S, D, device):
+    """Names the CUDA kernels one float32 F.scaled_dot_product_attention
+    call (the flash yardstick, causal) launches, from one torch.profiler
+    trace: which of PyTorch's routes the library time measures."""
+    q, k, v = (x[None, None] for x in flash_inputs((), S, S, D, "float32",
+                                                    device, seed=3))
+    F.scaled_dot_product_attention(q, k, v, is_causal=True)   # warm-up
+    sync(device)
+    if device.type != "cuda":
+        print("[sdpa-route] no card (rehearsal)")
+        return []
+    from torch.profiler import ProfilerActivity, profile
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            sync(device)
+        events = prof.key_averages()
+    except RuntimeError as e:          # the trace is a record, not a check
+        print(f"[sdpa-route] not traced: {e}")
+        return []
+    kernels = []
+    for e in events:
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        # device time that is not an operator's total or a profiler marker
+        if us > 0 and not e.key.startswith(("aten::", "Activity ")):
+            kernels.append({"kernel": e.key, "device_us": us})
+    print(f"[sdpa-route] F.scaled_dot_product_attention float32 "
+          f"(1, 1, {S}, {D}) causal launched: " + (json.dumps(kernels)
+          if kernels else "no device time in the trace"))
+    return kernels
+
+
 def phase_times_new(conv_cases_t, flash_cases_t, device):
     """CUDA events over runs of back-to-back launches, the versions taking
     turns: each kernel, its plain version and one library call."""
@@ -785,6 +833,13 @@ def phase_times_new(conv_cases_t, flash_cases_t, device):
             {k: v for k, v in rec.items() if not k.endswith("_runs")}))
     for label, cfg, (lead, S, D), iters in flash_cases_t:
         fn = fa.make_flash_attention(S, S, D, cfg, causal=True)
+        # the same library without the mask: it visits every KV block, so
+        # full_ms / ms is what the causal skipping saves
+        full = fa.make_flash_attention(S, S, D, cfg, causal=False)
+        # the heuristic config (built in build_new) beside the search's
+        # winner: whether the one-head search ranks well for many heads
+        heur = fa.make_flash_attention(
+            S, S, D, fa.heuristic_config(S, S, D), causal=True)
         q, k, v = flash_inputs(lead, S, S, D, "float32", device, seed=2)
         q4, k4, v4 = (x.reshape(-1, 1, S, D) for x in (q, k, v))
         rec = _time_case(
@@ -792,12 +847,18 @@ def phase_times_new(conv_cases_t, flash_cases_t, device):
             lambda: fa.flash_plain(q, k, v, fn.config, causal=True),
             lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                    is_causal=True),
-            device, iters=iters, plain_iters=2)
+            device, iters=iters, plain_iters=2,
+            extras={"full": lambda: full(q, k, v),
+                    "heuristic": lambda: heur(q, k, v)})
+        rec["heuristic"] = heur.config
         heads = int(np.prod(lead)) if lead else 1
         rec["bound_ms"], rec["bound_by"] = _bound(
             heads * fa.attention_flops(S, S, D, causal=True),
             4.0 * heads * 4 * S * D)
-        # no diagonal skipping: the kernel does twice the causal work
+        # the bound counts the causal half; the kernel visits the causal
+        # blocks only (flash.py::kv_steps), the diagonal ones whole
+        rec["visited_share"] = (fa.kv_steps(fn.config, S, S, causal=True)
+                                / fa.kv_steps(fn.config, S, S, causal=False))
         rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
         out[label] = rec
         print(f"[times] {label}: " + json.dumps(
@@ -875,6 +936,7 @@ def main(argv=None):
     S, D = flash_main[0], flash_main[2]
     conv_label = "conv {}x{} {}x{}".format(*conv_main)
     flash_label = "flash {}x{}x{}x{}".format(*flash_lead, S, D)
+    new["sdpa_route"] = phase_sdpa_route(S, D, device)
     t0 = time.perf_counter()
     new["times_new"] = phase_times_new(
         [(conv_label, conv_rec["best_kernel_config"], conv_main),

@@ -11,15 +11,23 @@ Tunables (the JAX package's names; values re-derived for the card in
 
   BLOCK_Q / BLOCK_K   query rows of one thread block / keys per step of its
                       loop over the keys
-  PIPELINE_DEPTH      analytical-model only: every value builds the same
-                      kernel
+  PIPELINE_DEPTH      K/V stages in shared memory, filled with cp.async
+                      while the block computes on an earlier stage
   (causal, scale are static problem properties, not tunables)
 
-Thread geometry: 4 threads per query row, 4 * BLOCK_Q threads a block
-(:func:`block_threads`).  One block's shared memory holds the Q tile, one
-K and one V tile and the BLOCK_Q x BLOCK_K scores, all float32
-(:func:`smem_footprint`), which caps the blocks at D = 128 well below the
-JAX package's.
+The kernel is float32 FMA work bound by FLOPs.  Each thread keeps a
+TM x TN tile of the scores and a TM x TD tile of the output in registers
+(:func:`geometry`); TK threads share a row group and reduce its max and
+sum with shuffles.  One block's shared memory holds the Q tile, the K/V
+ring and the probabilities P (:func:`smem_footprint`); Q, K and V are
+staged in their input type, P in float32.
+
+Causal blocks are skipped exactly: a query block whose first row sees key
+0 stops after the KV block holding its last row's last visible key
+(:func:`kv_end`; the CUDA source mirrors it), since every later block is
+fully masked and adds exactly nothing.  A query block with rows that see
+no key (causal with Sk < Sq) visits every KV block, which keeps their
+mean-of-v answer.  :func:`analytical_time` counts the same blocks.
 
 Leading dims (batch x heads), which the JAX package vmaps, are one more
 grid dimension of the kernel: one launch for all heads.
@@ -53,8 +61,10 @@ DEFAULT_CONFIG: Config = {"BLOCK_Q": 64, "BLOCK_K": 64}
 #: input/output types the kernel is built for
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
-#: threads per query row (the build's TPR)
-THREADS_PER_ROW = 4
+#: K/V stages when a config does not name PIPELINE_DEPTH (the JAX default)
+DEFAULT_PIPELINE_DEPTH = 2
+#: threads a block may have: 65,536 registers / 512 leaves each thread 128
+MAX_THREADS = 512
 
 #: launches of the CUDA kernel (one per call, whatever the number of
 #: heads); comparisons and timing runs count too, so a caller that wants
@@ -68,34 +78,81 @@ def _merged(config: Optional[Config]) -> Config:
     return cfg
 
 
-def block_threads(config: Config) -> int:
-    return THREADS_PER_ROW * config["BLOCK_Q"]
+def geometry(config: Config, D: int) -> Dict[str, int]:
+    """The thread geometry the build derives (``csrc/flash.cu``).
 
-
-def smem_footprint(config: Config, D: int) -> int:
-    """Bytes of shared memory one block claims: Q (BLOCK_Q x D), K (rows
-    padded by one float), V, and the scores (rows padded by one float), all
-    float32 whatever the input type."""
+    TM query rows a thread (8 when BLOCK_Q >= 128, else 4); TK threads
+    share them, TK = min(BLOCK_K/4, 32, D/4); each thread owns TN =
+    BLOCK_K/TK keys of the scores and TD = D/TK dims of the output."""
     bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
-    return 4 * (bq * D + bk * (D + 1) + bk * D + bq * (bk + 1))
+    tm = 8 if bq >= 128 else 4
+    tk = max(1, min(bk // 4, 32, D // 4))
+    return {"TM": tm, "TK": tk, "TN": bk // tk, "TD": D // tk,
+            "threads": (bq // tm) * tk}
+
+
+def block_threads(config: Config, D: int) -> int:
+    return geometry(config, D)["threads"]
+
+
+def register_estimate(config: Config, D: int) -> int:
+    """32-bit registers a thread needs, roughly: the score and output tiles,
+    m and l, one K vector a key and 32 for addresses and loop state."""
+    g = geometry(config, D)
+    return g["TM"] * (g["TN"] + g["TD"] + 2) + 4 * g["TN"] + 32
+
+
+def smem_footprint(config: Config, D: int, elt_bytes: int = 4) -> int:
+    """Bytes of shared memory one block claims: P (BLOCK_Q x BLOCK_K
+    float32, rows padded by 4), Q, and PIPELINE_DEPTH stages of K and V in
+    the input type (Q and K rows padded by 16 bytes)."""
+    bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
+    depth = int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
+    qk_row = D * elt_bytes + 16
+    return (4 * bq * (bk + 4) + bq * qk_row
+            + depth * bk * (qk_row + D * elt_bytes))
+
+
+def kv_end(q0: int, config: Config, Sq: int, Sk: int,
+           causal: bool = True) -> int:
+    """One past the last key the query block starting at row ``q0``
+    visits: the rule of ``csrc/flash.cu``.
+
+    A causal block whose first row sees key 0 (q0 + Sk - Sq >= 0) stops
+    after the KV block holding its last row's last visible key; every later
+    block is fully masked for all its rows.  A block with rows that see no
+    key visits every KV block (their answer is the mean of v)."""
+    bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
+    shift = Sk - Sq
+    if not causal or q0 + shift < 0:
+        return Sk
+    return min(Sk, -(-(q0 + bq + shift) // bk) * bk)
 
 
 def validate_config(config: Config, Sq: int, Sk: int, D: int) -> None:
     bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
     if Sq % bq or Sk % bk:
         raise ValueError(f"({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
-    if bq % 8:
-        raise ValueError(f"BLOCK_Q={bq}: the kernel needs a multiple of 8 "
-                         "(whole warps of 4 threads per row)")
-    if block_threads(config) > 1024:
-        raise ValueError(f"BLOCK_Q={bq} needs {block_threads(config)} "
-                         "threads; a block has at most 1024")
-    if D % THREADS_PER_ROW:
-        raise ValueError(f"D={D} must divide by {THREADS_PER_ROW}")
+    depth = int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
+    if depth < 2:
+        raise ValueError(f"PIPELINE_DEPTH={depth}: the ring needs 2 stages")
+    g = geometry(config, D)
+    if (bk % 4 or D % 8 or bq % g["TM"] or D % (4 * g["TK"])
+            or 32 % g["TK"]):
+        raise ValueError(f"blocks ({bq},{bk}) at D={D} do not tile into "
+                         f"the kernel's {g} geometry")
+    if g["threads"] % 32:
+        raise ValueError(f"BLOCK_Q={bq}, BLOCK_K={bk}: {g['threads']} "
+                         "threads, not whole warps")
+    if g["threads"] > MAX_THREADS:
+        raise ValueError(f"BLOCK_Q={bq}, BLOCK_K={bk} need {g['threads']} "
+                         f"threads; the kernel takes at most {MAX_THREADS}")
 
 
 def _defines(cfg: Config, D: int, dtype: torch.dtype) -> Dict[str, int]:
     return {"BLOCK_Q": cfg["BLOCK_Q"], "BLOCK_K": cfg["BLOCK_K"], "D": D,
+            "PIPELINE_DEPTH": int(cfg.get("PIPELINE_DEPTH",
+                                          DEFAULT_PIPELINE_DEPTH)),
             "IN_BF16": int(dtype == torch.bfloat16)}
 
 
@@ -219,9 +276,10 @@ class FlashAttention:
         if not torch.cuda.is_available():
             raise RuntimeError("flash attention: CUDA tensors given, but no "
                                "CUDA device is available")
-        if not (q.is_contiguous() and k.is_contiguous()
-                and v.is_contiguous()):
-            raise ValueError("the flash kernel takes contiguous operands")
+        if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+                   for x in (q, k, v)):
+            raise ValueError("the flash kernel takes contiguous operands "
+                             "on 16-byte boundaries (cp.async)")
         if self._lib is None:
             self.compile()
         lib = self._lib
@@ -258,35 +316,48 @@ def make_flash_attention(Sq: int, Sk: int, D: int,
 STEP_OVERHEAD_S = 0.5e-6
 #: threads one SM holds
 THREADS_PER_SM = 2048
+#: share of the FMA peak the register-tiled loops are modelled to reach
+FMA_EFFICIENCY = 0.6
+
+
+def kv_steps(config: Config, Sq: int, Sk: int, causal: bool = True) -> int:
+    """KV steps all query blocks of one head take (:func:`kv_end`)."""
+    bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
+    return sum(kv_end(q0, config, Sq, Sk, causal) // bk
+               for q0 in range(0, Sq, bq))
 
 
 def analytical_time(config: Config, profile: DeviceProfile,
-                    Sq: int, Sk: int, D: int, elt_bytes: int = 4) -> float:
+                    Sq: int, Sk: int, D: int, elt_bytes: int = 4, *,
+                    causal: bool = True) -> float:
     """max(FMA time, byte time) + per-step overhead, for searches without
     a card; it makes no claim about the kernel's time.
 
-    The kernel visits every KV block, so a causal problem costs as much as
-    a full one and the model does not ask which it is.  Past the shared-memory or thread limits the config is
-    infeasible (``math.inf``).  PIPELINE_DEPTH only scales how well bytes
-    overlap the FMAs.
+    Both count the KV blocks the kernel visits (:func:`kv_steps`), so a
+    causal problem costs about half a full one.  Past the shared-memory,
+    thread or register limits the config is infeasible (``math.inf``).
+    PIPELINE_DEPTH only scales how well bytes overlap the FMAs.
     """
     cfg = _merged(config)
     bq, bk = cfg["BLOCK_Q"], cfg["BLOCK_K"]
-    if Sq % bq or Sk % bk or bq % 8:
+    try:
+        validate_config(cfg, Sq, Sk, D)
+    except ValueError:
         return math.inf
-    threads = block_threads(cfg)
-    smem = smem_footprint(cfg, D)
-    if threads > 1024 or not profile.fits_smem(smem):
+    threads = block_threads(cfg, D)
+    smem = smem_footprint(cfg, D, elt_bytes)
+    if (not profile.fits_smem(smem) or register_estimate(cfg, D)
+            > min(255, profile.regs_per_sm // threads)):
         return math.inf
-    flops = 4.0 * Sq * Sk * D
-    # both operands of a score FMA come from shared memory
-    compute_t = flops / (0.4 * profile.peak_f32_flops)
+    steps = kv_steps(cfg, Sq, Sk, causal)
+    flops = 4.0 * steps * bq * bk * D
+    compute_t = flops / (FMA_EFFICIENCY * profile.peak_f32_flops)
     blocks = Sq // bq
-    traffic = (2 * Sq * D + blocks * 2 * Sk * D) * elt_bytes
+    traffic = (2 * Sq * D + steps * 2 * bk * D) * elt_bytes
     overlap = {2: 1.0, 3: 0.97}.get(int(cfg.get("PIPELINE_DEPTH", 2)), 1.0)
     memory_t = traffic / profile.hbm_bw * overlap
     per_sm = max(1, min(THREADS_PER_SM // threads,
                         profile.smem_per_block_optin // smem))
     concurrent = min(blocks, profile.sm_count * per_sm)
-    step_t = blocks * (Sk // bk) * STEP_OVERHEAD_S / concurrent
+    step_t = steps * STEP_OVERHEAD_S / concurrent
     return max(compute_t, memory_t) + step_t + profile.launch_overhead

@@ -6,9 +6,11 @@ family; ``flash_attention(q, k, v)`` resolves its configuration through
 
 The space is re-derived for the H100: the JAX package's blocks (BLOCK_Q
 up to 1024, BLOCK_K up to 2048) need megabytes at D = 128, and a Hopper
-block has 227 KB of shared memory and at most 1024 threads.  Both limits
-are constraints of the space (paper section III-A), so an infeasible
-config is pruned and never a failed launch.
+block has 227 KB of shared memory and 65,536 registers.  The kernel's
+geometry (whole warps, 128 to 512 threads), its register estimate and
+its shared memory with PIPELINE_DEPTH K/V stages are constraints of the
+space (paper section III-A), so an infeasible config is pruned and never
+a failed launch.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
 from .flash import (analytical_time, block_threads, make_flash_attention,
-                    smem_footprint)
+                    register_estimate, smem_footprint, validate_config)
 from .ref import attention_reference
 
 KERNEL_NAME = "flash_attention"
@@ -31,6 +33,9 @@ KERNEL_NAME = "flash_attention"
 #: block sizes of the H100 space
 BLOCK_Q = (16, 32, 64, 128, 256)
 BLOCK_K = (16, 32, 64, 128, 256)
+#: fewest threads a block of the space has: one warp for each of the
+#: SM's four schedulers
+MIN_THREADS = 128
 
 
 def _shape(Sq: int, Sk: int, D: int, causal: bool = True) -> Dict[str, Any]:
@@ -61,6 +66,15 @@ def heuristic_config(Sq: int, Sk: int, D: int = 128) -> Dict[str, Any]:
     return cfg
 
 
+def kernel_takes(bq: int, bk: int, D: int) -> bool:
+    """Whether the blocks tile into the kernel's thread geometry at D."""
+    try:
+        validate_config({"BLOCK_Q": bq, "BLOCK_K": bk}, bq, bk, D)
+    except ValueError:
+        return False
+    return True
+
+
 def tuning_space(D: int = 128):
     """(values, constraints) of the H100 space at head width ``D``."""
     params = {
@@ -68,12 +82,26 @@ def tuning_space(D: int = 128):
         "BLOCK_K": BLOCK_K,
         "PIPELINE_DEPTH": (2, 3),
     }
+    def registers_fit(bq, bk):
+        cfg = {"BLOCK_Q": bq, "BLOCK_K": bk}
+        return register_estimate(cfg, D) <= min(
+            255, H100_SXM.regs_per_sm // block_threads(cfg, D))
     constraints = [
-        (lambda bq: block_threads({"BLOCK_Q": bq}) <= 1024, ("BLOCK_Q",),
-         "at most 1024 threads per block"),
-        (lambda bq, bk: H100_SXM.fits_smem(smem_footprint(
-            {"BLOCK_Q": bq, "BLOCK_K": bk}, D)), ("BLOCK_Q", "BLOCK_K"),
-         "shared memory fits an H100 block (227 KB)"),
+        (lambda bq, bk: kernel_takes(bq, bk, D), ("BLOCK_Q", "BLOCK_K"),
+         "whole warps, at most 512 threads per block"),
+        (registers_fit, ("BLOCK_Q", "BLOCK_K"),
+         "the score and output tiles fit the registers"),
+        # the K/V ring leaves room for one or two blocks an SM, so a block
+        # of fewer than four warps leaves SM schedulers idle (on many heads
+        # such blocks ran 2x slower than the best, though one head with
+        # more, smaller blocks may time faster)
+        (lambda bq, bk: block_threads({"BLOCK_Q": bq, "BLOCK_K": bk}, D)
+         >= MIN_THREADS, ("BLOCK_Q", "BLOCK_K"),
+         "at least four warps a block"),
+        (lambda bq, bk, depth: H100_SXM.fits_smem(smem_footprint(
+            {"BLOCK_Q": bq, "BLOCK_K": bk, "PIPELINE_DEPTH": depth}, D)),
+         ("BLOCK_Q", "BLOCK_K", "PIPELINE_DEPTH"),
+         "Q, P and PIPELINE_DEPTH K/V stages fit an H100 block (227 KB)"),
     ]
     return params, constraints
 
@@ -107,7 +135,7 @@ def _make_args(shape: Shape, rng: np.random.Generator):
                                   s.get("causal", True)),
     make_args=_make_args,
     analytical_model=lambda s, cfg, prof: analytical_time(
-        cfg, prof, s["Sq"], s["Sk"], s["D"]),
+        cfg, prof, s["Sq"], s["Sk"], s["D"], causal=s.get("causal", True)),
     smem_footprint=lambda s, cfg: smem_footprint(cfg, s["D"]),
     reference=lambda s: (lambda q, k, v: attention_reference(
         q, k, v, causal=s.get("causal", True))),

@@ -4,7 +4,10 @@ The CUDA kernel ``csrc/gemm.cu`` replaces the JAX package's two Pallas
 TPU kernel bodies, ``repro/kernels/matmul/matmul.py::_mm_kernel_scratch``
 and ``::_mm_kernel_inplace``.  It is float32 FMA work (no tensor cores, no
 TF32), bound by FLOPs on this card; the source's head note says how the
-design keeps the FMA units fed.
+design keeps the FMA units fed: register micro-tiles read from shared
+memory 16 bytes at a time, and a ring of PIPELINE_DEPTH shared-memory
+stages filled with cp.async, so the copies of later K slices are in
+flight while the FMAs of the current one run.
 
 Parameter vocabulary (paper Table IV, re-derived for Hopper):
 
@@ -27,8 +30,10 @@ The thread geometry follows from the block shape inside the build: each
 thread owns a TM x TN micro-tile, TM = 8 when BLOCK_M >= 64 else 4 (TN
 likewise), so a block has (BLOCK_M/TM) * (BLOCK_N/TN) threads.
 
-Analytic-model-only parameters (the extended space's PIPELINE_DEPTH,
-NBUF_OUT, PACK) do not change the build.
+PIPELINE_DEPTH (the extended space's; 2 where a config does not name it,
+the JAX default) is the number of shared-memory stages.  The extended
+space's NBUF_OUT and PACK are analytic-model-only: they do not change the
+build.
 
 Which implementation runs follows the tensors' device alone: tensors on
 the CPU take the plain PyTorch version (:func:`gemm_plain`, an emulation of
@@ -58,6 +63,10 @@ DEFAULT_CONFIG: Config = {
     "GRID_ORDER": "mn", "INNER_STEPS": 1,
     "ACC_DTYPE": "float32", "ACC_IN_OUTPUT": False, "TRANS_A": False,
 }
+
+#: shared-memory stages when a config does not name PIPELINE_DEPTH (the
+#: JAX default)
+DEFAULT_PIPELINE_DEPTH = 2
 
 #: input/output types the kernel is built for
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -102,15 +111,20 @@ def validate_config(config: Config, M: int, N: int, K: int) -> None:
     if threads > 1024:
         raise ValueError(f"({bm},{bn}) blocks need {threads} threads; "
                          "a block has at most 1024")
+    if bm % 8 or bn % 8 or bk % 8:
+        raise ValueError(f"blocks ({bm},{bn},{bk}) must be multiples of 8: "
+                         "the slices are copied 16 bytes at a time")
+    if int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH)) < 2:
+        raise ValueError("PIPELINE_DEPTH must be at least 2 (a ring)")
 
 
-def smem_footprint(config: Config) -> int:
-    """Bytes of shared memory one block claims: one BLOCK_K slice of A
-    (rows padded by 4) and of B, staged as float32 whatever the input
-    type."""
+def smem_footprint(config: Config, elt_bytes: int = 4) -> int:
+    """Bytes of shared memory one block claims: PIPELINE_DEPTH stages of a
+    BLOCK_K slice of A and of B, unpadded, in the input type."""
     cfg = _merged(config)
     bm, bn, bk = cfg["BLOCK_M"], cfg["BLOCK_N"], cfg["BLOCK_K"]
-    return 4 * bk * (bm + 4 + bn)
+    depth = int(cfg.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
+    return elt_bytes * depth * bk * (bm + bn)
 
 
 def _defines(cfg: Config, dtype: torch.dtype) -> Dict[str, int]:
@@ -122,6 +136,8 @@ def _defines(cfg: Config, dtype: torch.dtype) -> Dict[str, int]:
         "ACC_BF16": int(cfg["ACC_DTYPE"] == "bfloat16"),
         "TRANS_A": int(bool(cfg["TRANS_A"])),
         "IN_BF16": int(dtype == torch.bfloat16),
+        "PIPELINE_DEPTH": int(cfg.get("PIPELINE_DEPTH",
+                                      DEFAULT_PIPELINE_DEPTH)),
     }
 
 
@@ -227,8 +243,10 @@ class Gemm:
         if not torch.cuda.is_available():
             raise RuntimeError("GEMM: CUDA tensors given, but no CUDA "
                                "device is available")
-        if not (a.is_contiguous() and b.is_contiguous()):
-            raise ValueError("the GEMM kernel takes contiguous operands")
+        if not all(x.is_contiguous() and x.data_ptr() % 16 == 0
+                   for x in (a, b)):
+            raise ValueError("the GEMM kernel takes contiguous operands on "
+                             "16-byte boundaries (cp.async)")
         lib = self._lib
         if lib is None:
             self.compile()

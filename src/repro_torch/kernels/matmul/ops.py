@@ -105,11 +105,21 @@ def tuning_space(extended: bool = False):
          ("ACC_IN_OUTPUT", "ACC_DTYPE"), "in-place acc requires f32"),
         (lambda bm, bn: micro_tile({"BLOCK_M": bm, "BLOCK_N": bn})[2] <= 1024,
          ("BLOCK_M", "BLOCK_N"), "at most 1024 threads per block"),
-        (lambda bm, bn, bk: H100_SXM.fits_smem(smem_footprint(
-            {"BLOCK_M": bm, "BLOCK_N": bn, "BLOCK_K": bk})),
-         ("BLOCK_M", "BLOCK_N", "BLOCK_K"),
-         "shared memory fits an H100 block (227 KB)"),
     ]
+    if extended:
+        constraints.append((
+            lambda bm, bn, bk, depth: H100_SXM.fits_smem(smem_footprint(
+                {"BLOCK_M": bm, "BLOCK_N": bn, "BLOCK_K": bk,
+                 "PIPELINE_DEPTH": depth})),
+            ("BLOCK_M", "BLOCK_N", "BLOCK_K", "PIPELINE_DEPTH"),
+            "PIPELINE_DEPTH stages fit an H100 block (227 KB)"))
+    else:
+        # the compact space has no PIPELINE_DEPTH: the JAX default of 2
+        constraints.append((
+            lambda bm, bn, bk: H100_SXM.fits_smem(smem_footprint(
+                {"BLOCK_M": bm, "BLOCK_N": bn, "BLOCK_K": bk})),
+            ("BLOCK_M", "BLOCK_N", "BLOCK_K"),
+            "two stages fit an H100 block (227 KB)"))
     return params, constraints
 
 

@@ -23,8 +23,10 @@ from repro_torch.core import (H100_SXM, AnalyticalEvaluator,  # noqa: E402
                               TuningCache, lookup_resolved)
 from repro_torch.kernels.attention import (  # noqa: E402
     FLASH_ATTENTION, analytical_time, attention_flops, attention_reference,
-    block_threads, flash_attention, flash_plain, heuristic_config,
-    make_flash_attention, shape_key, smem_footprint, tuning_space)
+    block_threads, flash_attention, flash_plain, geometry, heuristic_config,
+    kv_end, kv_steps, make_flash_attention, shape_key, smem_footprint,
+    tuning_space, validate_config)
+from repro_torch.kernels.attention.ref import NEG  # noqa: E402
 from repro_torch.kernels.attention import ops as port_ops  # noqa: E402
 from repro_torch.tune import tune_kernel  # noqa: E402
 
@@ -111,7 +113,7 @@ def test_invalid_blocks_rejected():
         make_flash_attention(256, 256, 64, {"BLOCK_Q": 100, "BLOCK_K": 128})
     with pytest.raises(ValueError):          # not whole warps
         make_flash_attention(256, 256, 64, {"BLOCK_Q": 4, "BLOCK_K": 128})
-    with pytest.raises(ValueError):          # 2048 threads
+    with pytest.raises(ValueError):          # 1024 threads
         make_flash_attention(512, 256, 64, {"BLOCK_Q": 512, "BLOCK_K": 128})
     with pytest.raises(ValueError):
         make_flash_attention(256, 256, 64, dtype=torch.float16)
@@ -165,9 +167,15 @@ def test_space_fits_the_card_and_keeps_the_names():
     assert list(params) == list(ref_params)
     shape = {"Sq": 4096, "Sk": 4096, "D": 128, "causal": True}
     configs = FLASH_ATTENTION.make_space(shape).enumerate()
-    assert len(configs) == 34
+    # the K/V ring (PIPELINE_DEPTH stages), the register tiles and blocks
+    # of 4 to 16 whole warps leave 7 of the 50 points
+    assert len(configs) == 7
+    assert {c["PIPELINE_DEPTH"] for c in configs} == {2, 3}
+    assert {(c["BLOCK_Q"], c["BLOCK_K"]) for c in configs} == {
+        (32, 64), (64, 32), (64, 64), (128, 32)}
     for c in configs:
-        assert block_threads(c) <= 1024
+        assert 128 <= block_threads(c, 128) <= 512
+        assert block_threads(c, 128) % 32 == 0
         assert smem_footprint(c, 128) <= H100_SXM.smem_per_block_optin
         assert math.isfinite(analytical_time(c, H100_SXM, 4096, 4096, 128))
     # every JAX block pair at D = 128 needs more than a block's memory
@@ -192,10 +200,119 @@ def test_heuristic_divides_fits_and_is_in_the_lists(sq, sk, d):
 def test_model_shows_the_cliff_and_the_flop_floor():
     ok = {"BLOCK_Q": 64, "BLOCK_K": 64}
     t = analytical_time(ok, H100_SXM, 4096, 4096, 128)
-    assert t >= 4.0 * 4096 * 4096 * 128 / H100_SXM.peak_f32_flops
+    # the kernel skips the causal blocks, so the floor is the causal work
+    assert t >= (attention_flops(4096, 4096, 128, causal=True)
+                 / H100_SXM.peak_f32_flops)
     assert math.isinf(analytical_time({"BLOCK_Q": 128, "BLOCK_K": 128},
                                       H100_SXM, 4096, 4096, 128))
     assert math.isinf(analytical_time(ok, H100_SXM, 4000, 4096, 128))
+
+
+SKIP_BLOCKS = [(16, 16), (32, 64), (64, 32), (64, 64), (128, 128)]
+
+
+@pytest.mark.parametrize("sq,sk", [(512, 512), (128, 512), (512, 128)])
+@pytest.mark.parametrize("bq,bk", SKIP_BLOCKS)
+def test_causal_skip_rule_against_a_brute_force_mask(sq, sk, bq, bk):
+    """No query block drops a visible key, and every KV block it drops is
+    fully masked for all its rows (Sq = Sk, the prefix Sq < Sk, and
+    Sq > Sk with rows that see no key)."""
+    cfg = {"BLOCK_Q": bq, "BLOCK_K": bk}
+    visible = (np.arange(sq)[:, None] + (sk - sq)) >= np.arange(sk)[None, :]
+    for q0 in range(0, sq, bq):
+        end = kv_end(q0, cfg, sq, sk, causal=True)
+        assert end % bk == 0 and 0 < end <= sk
+        rows = visible[q0:q0 + bq]
+        assert not rows[:, end:].any(), "a visible key was dropped"
+        if not rows.any(axis=1).all():
+            assert end == sk, "rows that see no key must visit every block"
+        # the rule is tight: the last visited block holds a visible key
+        assert rows[:, end - bk:end].any() or end == sk
+        assert kv_end(q0, cfg, sq, sk, causal=False) == sk
+    assert kv_steps(cfg, sq, sk, causal=False) == (sq // bq) * (sk // bk)
+
+
+def _online_softmax(q, k, v, q0, bk, sq, sk, k_stop):
+    """The kernel's loop for one query block, over the keys below k_stop."""
+    scale = q.shape[-1] ** -0.5
+    m = torch.full((q.shape[0], 1), NEG)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(q)
+    q_pos = torch.arange(q0, q0 + q.shape[0])[:, None] + (sk - sq)
+    for k0 in range(0, k_stop, bk):
+        s = (q @ k[k0:k0 + bk].T) * scale
+        s = torch.where(q_pos >= torch.arange(k0, k0 + bk)[None, :], s, NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p @ v[k0:k0 + bk]
+        m = m_new
+    return acc / l.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("sq,sk,bq,bk", [(256, 256, 64, 32),
+                                         (128, 512, 32, 64),
+                                         (512, 128, 64, 64)])
+def test_skipping_leaves_the_float32_result_bit_for_bit(sq, sk, bq, bk):
+    """The skipped blocks add exp(-1e30 - m) = 0 with alpha = 1, so a
+    query block that stops at kv_end gives exactly what visiting every KV
+    block gives."""
+    q, k, v = (torch.from_numpy(x) for x in _qkv((), sq, sk, 64, seed=7))
+    cfg = {"BLOCK_Q": bq, "BLOCK_K": bk}
+    skipped = 0
+    for q0 in range(0, sq, bq):
+        end = kv_end(q0, cfg, sq, sk, causal=True)
+        skipped += (sk - end) // bk
+        qb = q[q0:q0 + bq]
+        full = _online_softmax(qb, k, v, q0, bk, sq, sk, sk)
+        short = _online_softmax(qb, k, v, q0, bk, sq, sk, end)
+        assert torch.equal(full, short)
+    assert skipped > 0
+
+
+def test_model_counts_the_causal_blocks_the_kernel_visits():
+    cfg = {"BLOCK_Q": 64, "BLOCK_K": 64}
+    causal = analytical_time(cfg, H100_SXM, 4096, 4096, 128, causal=True)
+    full = analytical_time(cfg, H100_SXM, 4096, 4096, 128, causal=False)
+    assert 0.45 < causal / full < 0.6
+    assert causal >= (attention_flops(4096, 4096, 128, causal=True)
+                      / H100_SXM.peak_f32_flops)
+    # the ops declaration feeds `causal` from the shape
+    for c in (True, False):
+        s = {"Sq": 4096, "Sk": 4096, "D": 128, "causal": c}
+        assert FLASH_ATTENTION.analytical_model(s, cfg, H100_SXM) == \
+            analytical_time(cfg, H100_SXM, 4096, 4096, 128, causal=c)
+
+
+@pytest.mark.parametrize("bq,bk,d,want", [
+    (64, 64, 128, {"TM": 4, "TK": 16, "TN": 4, "TD": 8, "threads": 256}),
+    (128, 32, 128, {"TM": 8, "TK": 8, "TN": 4, "TD": 16, "threads": 128}),
+    (64, 256, 64, {"TM": 4, "TK": 16, "TN": 16, "TD": 4, "threads": 256}),
+    (32, 16, 128, {"TM": 4, "TK": 4, "TN": 4, "TD": 32, "threads": 32}),
+])
+def test_geometry_is_the_builds(bq, bk, d, want):
+    cfg = {"BLOCK_Q": bq, "BLOCK_K": bk}
+    assert geometry(cfg, d) == want
+    assert block_threads(cfg, d) == want["threads"]
+    g = want
+    assert g["TN"] * g["TK"] == bk and g["TD"] * g["TK"] == d
+    assert 32 % g["TK"] == 0 and g["TD"] % 4 == 0
+    validate_config(cfg, 256, 256, d)
+
+
+def test_smem_footprint_counts_the_stages_and_the_input_type():
+    cfg = {"BLOCK_Q": 64, "BLOCK_K": 64, "PIPELINE_DEPTH": 2}
+    # P (float32, rows + 4), Q and K rows + 16 bytes, V unpadded
+    assert smem_footprint(cfg, 128) == (4 * 64 * 68 + 64 * 528
+                                        + 2 * 64 * (528 + 512))
+    deeper = smem_footprint({**cfg, "PIPELINE_DEPTH": 3}, 128)
+    assert deeper - smem_footprint(cfg, 128) == 64 * (528 + 512)
+    assert smem_footprint(cfg, 128, elt_bytes=2) < smem_footprint(cfg, 128)
+    assert smem_footprint({"BLOCK_Q": 64, "BLOCK_K": 64}, 128) == \
+        smem_footprint(cfg, 128)
+    with pytest.raises(ValueError):
+        make_flash_attention(256, 256, 64, {**cfg, "PIPELINE_DEPTH": 1})
 
 
 def test_tune_record_lookup_run_on_cpu(tmp_path, monkeypatch):

@@ -120,7 +120,11 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 def test_smem_footprint_and_model_show_the_cliff():
     small = {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 32}
     huge = {"BLOCK_M": 256, "BLOCK_N": 256, "BLOCK_K": 128}
-    assert smem_footprint(small) == 4 * 32 * (128 + 4 + 128)
+    # two stages (the default PIPELINE_DEPTH) of unpadded A and B slices
+    assert smem_footprint(small) == 2 * 4 * 32 * (128 + 128)
+    assert smem_footprint({**small, "PIPELINE_DEPTH": 3}) == \
+        3 * 4 * 32 * (128 + 128)
+    assert smem_footprint(small, elt_bytes=2) == 2 * 2 * 32 * (128 + 128)
     assert smem_footprint(small) <= H100_SXM.smem_per_block_optin
     assert smem_footprint(huge) > H100_SXM.smem_per_block_optin
     assert math.isfinite(analytical_time(small, H100_SXM, 2048, 2048, 2048))
@@ -176,3 +180,31 @@ def test_heuristic_config_divides_and_is_in_the_lists():
     assert 384 % cfg["BLOCK_K"] == 0
     assert heuristic_config(2048, 2048, 2048)["BLOCK_K"] == 64
 
+
+
+def test_pipeline_depth_is_the_number_of_shared_memory_stages():
+    from repro_torch.kernels.matmul.matmul import _defines
+    cfg = {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 64}
+    # the compact space has no PIPELINE_DEPTH: the JAX default of 2 builds
+    assert _defines({**DEFAULT_CONFIG, **cfg},
+                    torch.float32)["PIPELINE_DEPTH"] == 2
+    assert _defines({**DEFAULT_CONFIG, **cfg, "PIPELINE_DEPTH": 4},
+                    torch.float32)["PIPELINE_DEPTH"] == 4
+    assert smem_footprint(cfg) == 131_072 <= H100_SXM.smem_per_block_optin
+    params, constraints = tuning_space(extended=True)
+    names = [n for _, n, _ in constraints]
+    assert ("BLOCK_M", "BLOCK_N", "BLOCK_K", "PIPELINE_DEPTH") in names
+    fits = dict((n, fn) for fn, n, _ in constraints)[
+        ("BLOCK_M", "BLOCK_N", "BLOCK_K", "PIPELINE_DEPTH")]
+    assert fits(128, 128, 64, 2) and not fits(128, 128, 64, 4)
+    _, compact = tuning_space()
+    assert all("PIPELINE_DEPTH" not in n for _, n, _ in compact)
+
+
+@pytest.mark.parametrize("cfg", [
+    {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 64, "PIPELINE_DEPTH": 1},
+    {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 4},
+])
+def test_validate_rejects_what_the_ring_cannot_take(cfg):
+    with pytest.raises(ValueError):
+        make_matmul(256, 256, 256, cfg)
