@@ -18,8 +18,10 @@ each printing its own lines:
      wall-clock evaluator, lookup (provenance "exact"), matmul(config=None)
   5. GEMM times at 2048^3: tuned kernel, heuristic config, plain version,
      torch.matmul as the library yardstick, and the FLOP bound
-  6. build_new: every conv2d and flash configuration of phases 7-10, all
-     nvcc runs at once; built threads and shared bytes against the models
+  6. build_new: every conv2d and flash configuration of phases 7-10 and
+     13, all nvcc runs at once; built threads and shared bytes (and each
+     conv build's register micro-tile) against the models; ptxas's
+     registers and spills of each conv build
   7. conv sweep: every case of the JAX package's conv2d tests, plus even
      filters, at its shape and at 4096^2, against conv2d_plain and the
      oracle (tolerance 1e-4, the JAX tests')
@@ -33,14 +35,22 @@ each printing its own lines:
      conv2d(config=None) at 8192x4096 with 7x7 and 11x11 (heuristic)
  10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
      causal (budget 24), lookup "exact", flash_attention(config=None) on
-     (2, 8, 4096, 128) float32: one launch for all 16 heads
+     (2, 8, 4096, 128) float32: one launch for all 16 heads; then
+     build_space: every distinct conv build of the extended space at 3x3,
+     16 nvcc at a time, with ptxas's registers and spills (none may spill;
+     after the searches, so their nvcc time stays their own)
  11. the CUDA kernels one float32 F.scaled_dot_product_attention call
      launches (one torch.profiler trace): the flash yardstick's route
  12. conv and flash times (CUDA events, the versions taking turns): each
      kernel, its plain version, F.conv2d or F.scaled_dot_product_attention
      as the library yardstick, and the bound (the flash kernel skips the
-     causal blocks above the diagonal; the bound counts the causal half)
- 13. one JSON line listing every ported kernel
+     causal blocks above the diagonal; the bound counts the causal half);
+     conv at 4096^2 3x3 (the search's best kernel config) and at 8192x4096
+     7x7 and 11x11 (the heuristic config)
+ 13. conv-large: SUB_H in {1, 2, 4, 8} x BLOCK_H in {16, 32} at BLOCK_W 256
+     on 8192x4096 11x11, each checked against the oracle and timed: how far
+     the JAX heuristic (SUB_H 1, 16 x 256) is from the card's best there
+ 14. one JSON line listing every ported kernel
 
 Each main path zeroes its kernels' launch counters just before it and
 reads them just after.  The searches' budgets (GEMM 32, conv 48, flash
@@ -56,8 +66,10 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -77,6 +89,8 @@ from repro_torch.core import (H100_SXM, WallClockEvaluator,  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as cv  # noqa: E402
+# the kernel's module (the package's ``conv2d`` is the op)
+cv_kernel = importlib.import_module("repro_torch.kernels.conv2d.conv2d")
 from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E402
                                         gemm_reference, heuristic_config,
                                         make_matmul, matmul, micro_tile,
@@ -215,9 +229,19 @@ def ptxas_info(fn):
     name = fn.build_name
     if fn.address is None:
         return []
-    with open(build.log_path(name, fn.address)) as f:
+    return ptxas_lines(build.log_path(name, fn.address))
+
+
+def ptxas_lines(log):
+    with open(log) as f:
         return [" ".join(line.split()) for line in f
                 if "registers" in line or "spill" in line]
+
+
+def spill_bytes(lines):
+    """Bytes of spill stores ptxas reported in ``lines``."""
+    return sum(int(m) for line in lines
+               for m in re.findall(r"(\d+) bytes spill stores", line))
 
 
 def phase_environment(device):
@@ -531,10 +555,17 @@ def phase_build_new(objs, device):
         print(f"[build-new] {len(addresses)} libraries for {len(todo)} "
               f"kernel objects in {time.perf_counter() - t0:.2f} s")
         # the searches prune by these models: they must be what was built
+        printed = set()
         for f in todo:
             if isinstance(f, cv.Conv2d):
                 want = (cv.block_threads(f.config),
-                        cv.smem_footprint(f.config, f.Fh, f.Fw))
+                        cv.smem_footprint(f.config, f.Fh, f.Fw),
+                        cv.micro_tile(f.config, f.Fh, f.Fw))
+                if f.address not in printed:
+                    printed.add(f.address)
+                    print(f"[build-new] conv2d {f.Fh}x{f.Fw} "
+                          f"{json.dumps(f.config)} micro-tile {want[2]}: "
+                          + "; ".join(ptxas_info(f)))
             else:
                 want = (fa.block_threads(f.config, f.D),
                         fa.smem_footprint(f.config, f.D, f.dtype.itemsize))
@@ -542,6 +573,42 @@ def phase_build_new(objs, device):
                 raise AssertionError(f"{f.config}: built {f.geometry()}, "
                                      f"modelled {want}")
     return time.perf_counter() - t0
+
+
+def phase_build_space(device, workers=16):
+    """Build every distinct conv2d library of the extended space at 3x3 and
+    read ptxas's registers and spills: the register tile is capped so that
+    none spills."""
+    shape = {"H": 4096, "W": 4096, "Fh": 3, "Fw": 3}
+    builds = {}
+    for c in cv.CONV2D.make_space(shape, extended=True).enumerate():
+        if c["HALO_MODE"] == "materialize":
+            fn = cv.make_conv2d(4096, 4096, 3, 3, c)
+            builds.setdefault(fn.defines(), fn)
+    record = {"builds": len(builds)}
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(workers) as pool:
+            logs = list(pool.map(
+                lambda d: build.log_path(cv_kernel.BUILD_NAME, build.build(
+                    cv_kernel.SOURCE, dict(d), cv_kernel.BUILD_NAME)[1]),
+                builds))
+        registers, spills = {}, []
+        for log, fn in zip(logs, builds.values()):
+            lines = ptxas_lines(log)
+            regs = [int(m) for line in lines
+                    for m in re.findall(r"Used (\d+) registers", line)]
+            registers[max(regs)] = registers.get(max(regs), 0) + 1
+            if spill_bytes(lines):
+                spills.append({"config": fn.config, "lines": lines})
+        record.update(seconds=time.perf_counter() - t0,
+                      registers=dict(sorted(registers.items())),
+                      spilling=spills)
+    print("[build-space] " + json.dumps(record))
+    if record.get("spilling"):
+        raise AssertionError(f"{len(spills)} conv builds of the 3x3 space "
+                             "spill")
+    return record
 
 
 def _check_row(row, kind):
@@ -808,6 +875,53 @@ def phase_sdpa_route(S, D, device):
     return kernels
 
 
+def conv_large_configs():
+    """The [conv-large] sweep: SUB_H x BLOCK_H at BLOCK_W 256; the first
+    is the heuristic config (SUB_H 1, 16 x 256)."""
+    return [dict(cv.heuristic_config(8192, 4096, 11, 11), SUB_H=sub,
+                 BLOCK_H=bh) for sub in (1, 2, 4, 8) for bh in (16, 32)]
+
+
+def phase_conv_large(fns, size, device):
+    """Each [conv-large] config against the oracle (CONV_TOL) and timed,
+    the configs taking turns; the heuristic config is one of them."""
+    H, W, Fh, Fw = size
+    img, f = conv_inputs(*size, device, seed=2)
+    oracle = cv.conv2d_reference(img, f)
+    runs = time_in_turns({i: (lambda fn=fn: fn(img, f))
+                          for i, fn in enumerate(fns)}, device, rounds=3,
+                         iters=20)
+    bound_ms, bound_by = _bound(cv.conv_flops(H, W, Fh, Fw),
+                                4.0 * (2 * H * W + Fh * Fw))
+    rows = []
+    for i, fn in enumerate(fns):
+        out = fn(img, f)
+        sync(device)
+        row = {"config": fn.config,
+               "finite": bool(torch.isfinite(out).all()),
+               "micro_tile": cv.micro_tile(fn.config, Fh, Fw),
+               "threads": cv.block_threads(fn.config),
+               "ms": float(np.median(runs[i])), "ms_runs": runs[i],
+               "err_oracle": max_err(out, oracle),
+               "share_oracle": tol_share(out, oracle, CONV_TOL, CONV_TOL),
+               "ptxas": ptxas_info(fn)}
+        row["share_of_bound"] = bound_ms / row["ms"]
+        rows.append(row)
+    best = min(rows, key=lambda r: r["ms"])
+    heur_ms = rows[0]["ms"]
+    record = {"shape": list(size), "bound_ms": bound_ms,
+              "bound_by": bound_by, "best": best["config"],
+              "best_ms": best["ms"], "heuristic_ms": heur_ms,
+              "heuristic_over_best": heur_ms / best["ms"], "rows": rows}
+    print("[conv-large] " + json.dumps(
+        {**record, "rows": [{k: v for k, v in r.items() if k != "ms_runs"}
+                            for r in rows]}))
+    bad = [r for r in rows if not (r["finite"] and r["share_oracle"] <= 1.0)]
+    if bad:
+        raise AssertionError(f"conv-large configs disagree: {bad}")
+    return record
+
+
 def phase_times_new(conv_cases_t, flash_cases_t, device):
     """CUDA events over runs of back-to-back launches, the versions taking
     turns: each kernel, its plain version and one library call."""
@@ -913,12 +1027,14 @@ def main(argv=None):
                 dtype=getattr(torch, dtype))
     conv_heur = [cv.make_conv2d(*s, cv.heuristic_config(*s))
                  for s in [conv_main] + conv_big]
+    conv_large = [cv.make_conv2d(*conv_big[-1], cfg)
+                  for cfg in conv_large_configs()]
     flash_heur = fa.make_flash_attention(
         *flash_main, fa.heuristic_config(*flash_main))
     new = {}
     for phase, fn, fargs in [
             ("build_new", phase_build_new,
-             (list(conv_fns.values()) + conv_heur
+             (list(conv_fns.values()) + conv_heur + conv_large
               + list(flash_fns.values()) + [flash_heur], device)),
             ("conv_sweep", phase_conv_sweep, (ccases, conv_fns, big, device)),
             ("flash_sweep", phase_flash_sweep,
@@ -926,7 +1042,9 @@ def main(argv=None):
             ("conv_main", phase_conv_main,
              (conv_main, conv_big, device, conv_budget)),
             ("flash_main", phase_flash_main,
-             (flash_main, flash_lead, device, flash_budget))]:
+             (flash_main, flash_lead, device, flash_budget)),
+            # after the searches, which build their own configurations
+            ("build_space", phase_build_space, (device,))]:
         t0 = time.perf_counter()
         new[phase] = fn(*fargs)
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s")
@@ -939,13 +1057,24 @@ def main(argv=None):
     new["sdpa_route"] = phase_sdpa_route(S, D, device)
     t0 = time.perf_counter()
     new["times_new"] = phase_times_new(
-        [(conv_label, conv_rec["best_kernel_config"], conv_main),
-         ("conv {}x{} {}x{}".format(*conv_big[-1]),
-          conv_rec["calls"][-1]["config"], conv_big[-1])],
+        [(conv_label, conv_rec["best_kernel_config"], conv_main)]
+        + [("conv {}x{} {}x{}".format(*size), call["config"], size)
+           for size, call in zip(conv_big, conv_rec["calls"][1:])],
         [(f"flash {S}x{D}", flash_rec["winner"], ((), S, D), 50),
          (flash_label, flash_rec["winner"], (flash_lead, S, D), 10)],
         device)
     print(f"[phase] times_new: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    new["conv_large"] = phase_conv_large(conv_large, conv_big[-1], device)
+    print(f"[phase] conv_large: {time.perf_counter() - t0:.1f} s")
+    # the heuristic builds and the 3x3 search's best kernel spill nothing
+    for fn in conv_heur + [cv.make_conv2d(*conv_main,
+                                          conv_rec["best_kernel_config"])]:
+        if device.type == "cuda":
+            fn.compile()
+        if spill_bytes(ptxas_info(fn)):
+            raise AssertionError(f"conv2d {fn.config} at {fn.Fh}x{fn.Fw} "
+                                 f"spills: {ptxas_info(fn)}")
 
     line = {"kernels": []}
     for variant in ("gemm_scratch", "gemm_inplace"):

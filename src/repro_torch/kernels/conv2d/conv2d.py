@@ -12,8 +12,11 @@ Parameter vocabulary (paper Table II, the JAX package's names and values):
   BLOCK_H / BLOCK_W   output tile of one thread block (paper: X_wg/Y_wg)
   SUB_H  1|2|4|8      output rows each thread sums at a time (paper: the
                       work per thread, X_wpt/Y_wpt)
-  UNROLL True|False   taps unrolled at compile time, or one rolled loop
-                      (paper: UNR)
+  UNROLL True|False   True: every loop over the taps unrolled at compile
+                      time; False: the loop over filter rows rolled, the
+                      taps of one row and the register window unrolled (a
+                      window held in registers cannot be indexed at run
+                      time) (paper: UNR)
   HALO_MODE           'materialize' = the CUDA kernel, which stages its halo
                       in shared memory (paper L$=1/2); 'xla' = the library
                       convolution, ``F.conv2d`` with explicit padding and
@@ -21,19 +24,26 @@ Parameter vocabulary (paper Table II, the JAX package's names and values):
                       ``lax.conv_general_dilated`` outside any Pallas
                       kernel).  'xla' is not a port of the TPU kernel: it
                       builds nothing and counts no launch.
-  PAD_W  0|1          (extended space) floats of padding at the end of each
-                      shared-memory row, the paper's PAD; a real build
-                      parameter
+  PAD_W  0|1          (extended space) 16-byte quads of padding at the end
+                      of each shared-memory row, the paper's PAD (a quad,
+                      not a float, so rows stay aligned for the kernel's
+                      16-byte loads); a real build parameter
   PIPELINE_DEPTH      (extended space) analytical-model only: every value
                       builds the same kernel
 
 Thread geometry: TY = BLOCK_H / SUB_H row groups and TX = min(BLOCK_W,
-max(32, 256 / TY)) threads along a row, TX * TY threads a block; thread
-(tx, ty) sums rows ty*SUB_H .. ty*SUB_H + SUB_H - 1 of the tile at
-columns tx, tx + TX, ... (:func:`block_threads`).  A block may have 1024
-threads, so BLOCK_H / SUB_H <= 32 on the card; the space says so as a
-constraint, with the shared-memory footprint (:func:`smem_footprint`),
-so an infeasible config is pruned and never a failed launch.
+max(32, 256 / TY)) threads along a row, TX * TY threads a block
+(:func:`block_threads`).  Thread (tx, ty) owns rows ty*SUB_H ..
+ty*SUB_H + SUB_H - 1 and ceil(BLOCK_W / TX) columns, summed as a register
+tile of SUB_H rows x CG adjacent columns, one column group at a time:
+group g covers tile columns g*CG*TX + tx*CG .. + CG - 1
+(:func:`micro_tile`).  For each filter row the thread loads the row's
+weights and, for each of its rows, a sliding window of CG + Fw - 1 image
+values into registers, then does Fw * CG FMAs from them.  A block may
+have 1024 threads, so BLOCK_H / SUB_H <= 32 on the card; the space says
+so as a constraint, with the shared-memory footprint
+(:func:`smem_footprint`), so an infeasible config is pruned and never a
+failed launch.
 
 Which implementation runs follows the tensors' device alone: tensors on
 the CPU take the plain PyTorch version (:func:`conv2d_plain`, the kernel's
@@ -76,25 +86,99 @@ def _merged(config: Optional[Config]) -> Config:
     return cfg
 
 
+def row_geometry(config: Config) -> Tuple[int, int, int]:
+    """(TY, TX, columns a thread owns) of a 'materialize' config."""
+    ty = config["BLOCK_H"] // config["SUB_H"]
+    tx = min(config["BLOCK_W"], max(32, 256 // ty))
+    return ty, tx, -(-config["BLOCK_W"] // tx)
+
+
 def block_threads(config: Config) -> int:
     """Threads of one block the build derives from the tile (0 for 'xla',
     which launches no kernel of ours)."""
     if config.get("HALO_MODE", "materialize") == "xla":
         return 0
-    ty = config["BLOCK_H"] // config["SUB_H"]
-    tx = min(config["BLOCK_W"], max(32, 256 // ty))
+    ty, tx, _ = row_geometry(config)
     return tx * ty
 
 
+#: registers a thread may use at 1024 resident threads an SM (65536 over
+#: 1024), and at 1536 (rounded down to 8); the build asks for 1536
+#: (``__launch_bounds__``) for single-row threads whose register estimate
+#: fits the smaller
+REGISTERS, REGISTERS_SMALL = 64, 40
+#: registers a thread keeps besides its sums and its rows' windows
+#: (addresses, weights in flight, loop state); calibrated on ptxas's counts
+#: and shared with the build
+REG_OVERHEAD = 8
+#: widest column group of the register tile
+MAX_GROUP_COLS = 8
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _vec(cols: int) -> int:
+    """Floats one window load moves: 16-, 8- or 4-byte loads."""
+    return 4 if cols % 4 == 0 else 2 if cols % 2 == 0 else 1
+
+
+def _window(cols: int, Fw: int) -> int:
+    """Floats of one window: cols + Fw - 1, rounded up to whole loads."""
+    return _round_up(cols + Fw - 1, _vec(cols))
+
+
+def register_estimate(config: Config, Fw: int, cols: int) -> int:
+    """Registers a thread needs with ``cols`` columns a group: its SUB_H x
+    cols sums, the windows of its SUB_H rows for one filter row (ptxas
+    issues those loads together) and :data:`REG_OVERHEAD` (``regs_of`` in
+    the build)."""
+    return config["SUB_H"] * (cols + _window(cols, Fw)) + REG_OVERHEAD
+
+
+def micro_tile(config: Config, Fh: int, Fw: int) -> Tuple[int, int, int]:
+    """(rows, columns, column groups) of one thread's register tile, as the
+    build derives them (``csrc/conv2d.cu``, ``pick_cg``).
+
+    The columns are the widest divisor of the thread's ceil(BLOCK_W / TX)
+    columns, at most :data:`MAX_GROUP_COLS`, whose
+    :func:`register_estimate` fits :data:`REGISTERS` (one column when none
+    does); the groups take the rest, one after the other.  The filter
+    height does not enter: one filter row is live at a time.
+    """
+    cfg = _merged(config)
+    per_thread = row_geometry(cfg)[2]
+    for cols in range(min(per_thread, MAX_GROUP_COLS), 1, -1):
+        if (per_thread % cols == 0
+                and register_estimate(cfg, Fw, cols) <= REGISTERS):
+            return cfg["SUB_H"], cols, per_thread // cols
+    return cfg["SUB_H"], 1, per_thread
+
+
+def resident_threads(config: Config, Fh: int, Fw: int) -> int:
+    """Threads an SM the build asks to hold (``RESIDENT``): 1536 for
+    single-row threads whose register estimate fits
+    :data:`REGISTERS_SMALL`, else 1024."""
+    cfg = _merged(config)
+    cols = micro_tile(cfg, Fh, Fw)[1]
+    return (1536 if cfg["SUB_H"] == 1 and register_estimate(cfg, Fw, cols)
+            <= REGISTERS_SMALL else 1024)
+
+
 def smem_footprint(config: Config, Fh: int, Fw: int) -> int:
-    """Bytes of shared memory one block claims: the halo tile, each row
-    padded by PAD_W floats, and the filter (0 for 'xla')."""
+    """Bytes of shared memory one block claims (0 for 'xla'): the halo
+    tile and the filter.  A tile row holds the columns the windows read,
+    TX * ceil(BLOCK_W / TX) + Fw - 1, rounded up to a multiple of 8 (the
+    kernel swizzles quads within pairs), plus PAD_W quads; a filter row is
+    rounded up to a quad."""
     cfg = _merged(config)
     if cfg["HALO_MODE"] == "xla":
         return 0
-    bh, bw = cfg["BLOCK_H"], cfg["BLOCK_W"]
-    pad = int(cfg.get("PAD_W", 0))
-    return 4 * ((bh + Fh - 1) * (bw + Fw - 1 + pad) + Fh * Fw)
+    _, tx, per_thread = row_geometry(cfg)
+    row = (_round_up(tx * per_thread + Fw - 1, 8)
+           + 4 * int(cfg.get("PAD_W", 0)))
+    return 4 * ((cfg["BLOCK_H"] + Fh - 1) * row + Fh * _round_up(Fw, 4))
 
 
 def validate_config(config: Config, H: int, W: int, Fh: int, Fw: int) -> None:
@@ -166,12 +250,16 @@ class Conv2d:
         self._lib: Optional[ctypes.CDLL] = None
         self.address: Optional[str] = None
 
+    def defines(self) -> Tuple[Tuple[str, int], ...]:
+        """The build's -D defines: one library per distinct value."""
+        return tuple(sorted(_defines(self.config, self.Fh, self.Fw).items()))
+
     def compile(self) -> Optional[str]:
         if self.route == "library":
             return None
         if self._lib is None:
-            lib, address = build.load(
-                SOURCE, _defines(self.config, self.Fh, self.Fw), BUILD_NAME)
+            lib, address = build.load(SOURCE, dict(self.defines()),
+                                      BUILD_NAME)
             lib.conv2d_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -181,15 +269,21 @@ class Conv2d:
             lib.conv2d_error_string.restype = ctypes.c_char_p
             lib.conv2d_smem_bytes.restype = ctypes.c_int
             lib.conv2d_threads.restype = ctypes.c_int
+            lib.conv2d_micro_tile.argtypes = [ctypes.POINTER(ctypes.c_int)]
+            lib.conv2d_micro_tile.restype = None
             self._lib, self.address = lib, address
         return self.address
 
-    def geometry(self) -> Tuple[int, int]:
-        """(threads, shared-memory bytes) of one block, as the build
-        reports them; builds the library if that has not happened yet."""
+    def geometry(self) -> Tuple[int, int, Tuple[int, int, int]]:
+        """(threads, shared-memory bytes, (rows, columns, column groups))
+        of one block and thread, as the build reports them; builds the
+        library if that has not happened yet."""
         if self.compile() is None:
-            return 0, 0
-        return self._lib.conv2d_threads(), self._lib.conv2d_smem_bytes()
+            return 0, 0, (0, 0, 0)
+        tile = (ctypes.c_int * 3)()
+        self._lib.conv2d_micro_tile(tile)
+        return (self._lib.conv2d_threads(), self._lib.conv2d_smem_bytes(),
+                tuple(tile))
 
     def _check(self, image: torch.Tensor, filt: torch.Tensor) -> None:
         if (tuple(image.shape) != (self.H, self.W)
@@ -252,8 +346,6 @@ def make_conv2d(H: int, W: int, Fh: int, Fw: int,
 
 #: fixed cost of one wave of blocks over the SMs, seconds (a model constant)
 WAVE_OVERHEAD_S = 1.0e-6
-#: threads one SM holds
-THREADS_PER_SM = 2048
 
 
 def analytical_time(config: Config, profile: DeviceProfile,
@@ -264,9 +356,15 @@ def analytical_time(config: Config, profile: DeviceProfile,
 
     'xla' is the library convolution, priced at half the float32 FMA rate
     and the footnote-2 bytes.  'materialize' pays for the halo overlap in
-    bytes, for rolled taps and single-row threads in FMA efficiency, and
-    is infeasible past the shared-memory or thread limits (``math.inf``).
-    PIPELINE_DEPTH only scales how well bytes overlap the FMAs.
+    bytes and is infeasible past the shared-memory or thread limits
+    (``math.inf``).  Its FMA efficiency follows the register tile
+    (:func:`micro_tile`): per filter row and column group a warp issues
+    Fw * cols * rows FMAs (an SM retires four such warp instructions a
+    clock), rows windows of shared-memory loads (one clock per 32 words)
+    and the weights' broadcast quad loads (one clock each); the FMAs' share
+    of the slower of the shared-memory clocks and the issue slots is the
+    efficiency, times 0.72 for rolled filter rows.  PIPELINE_DEPTH only
+    scales how well bytes overlap the FMAs.
     """
     cfg = _merged(config)
     bh, bw = cfg["BLOCK_H"], cfg["BLOCK_W"]
@@ -281,15 +379,20 @@ def analytical_time(config: Config, profile: DeviceProfile,
     smem = smem_footprint(cfg, Fh, Fw)
     if threads > 1024 or not profile.fits_smem(smem):
         return math.inf
-    # each tap is one FMA and one shared-memory load; SUB_H rows per thread
-    # share nothing in this kernel, so the load rate caps the FMA rate
-    eff = 0.5 * (1.0 if cfg["UNROLL"] else 0.72)
+    rows, cols, _ = micro_tile(cfg, Fh, Fw)
+    fmas = Fw * cols * rows
+    window = _window(cols, Fw)
+    weight_loads = _round_up(Fw, 4) // 4
+    smem_clocks = rows * window + weight_loads
+    issued = fmas + rows * window // _vec(cols) + weight_loads
+    eff = (min(1.0, fmas / 4 / smem_clocks, fmas / issued)
+           * (1.0 if cfg["UNROLL"] else 0.72))
     compute_t = flops / (profile.peak_f32_flops * eff)
     dup = (1.0 + (Fh - 1) / bh) * (1.0 + (Fw - 1) / bw)
     memory_t = H * W * elt_bytes * (dup + 1.0) / profile.hbm_bw
     overlap = {2: 1.0, 3: 0.97, 4: 0.96}.get(
         int(cfg.get("PIPELINE_DEPTH", 2)), 1.0)
-    per_sm = max(1, min(THREADS_PER_SM // threads,
+    per_sm = max(1, min(resident_threads(cfg, Fh, Fw) // threads,
                         profile.smem_per_block_optin // max(smem, 1)))
     blocks = -(-H // bh) * -(-W // bw)
     waves = math.ceil(blocks / (profile.sm_count * per_sm))

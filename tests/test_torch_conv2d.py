@@ -6,6 +6,7 @@ kernel itself runs only on the card (see ``chip_smoke.py``); here its
 wrapper, its space and its model are checked.
 """
 
+import importlib
 import math
 
 import numpy as np
@@ -22,9 +23,12 @@ from repro_torch.core import (H100_SXM, AnalyticalEvaluator,  # noqa: E402
 from repro_torch.kernels.conv2d import (  # noqa: E402
     CONV2D, analytical_time, block_threads, conv2d, conv2d_plain,
     conv2d_reference, conv_bytes, conv_flops, heuristic_config, make_conv2d,
-    shape_key, smem_footprint, tuning_space, validate_config)
+    micro_tile, shape_key, smem_footprint, tuning_space, validate_config)
 from repro_torch.kernels.conv2d import ops as port_ops  # noqa: E402
 from repro_torch.tune import tune_kernel  # noqa: E402
+
+# the kernel's module (the package's ``conv2d`` is the op)
+port_kernel = importlib.import_module("repro_torch.kernels.conv2d.conv2d")
 
 TOL = 1e-4
 
@@ -182,10 +186,108 @@ def test_thread_geometry_and_footprint():
     assert block_threads(CONFIGS[0]) == 32 * 16
     assert block_threads(CONFIGS[2]) == 128 * 2
     assert block_threads(CONFIGS[3]) == 0
-    assert smem_footprint(CONFIGS[0], 3, 3) == 4 * (18 * 130 + 9)
+    # tile rows: the 128 + 2 columns the windows read, rounded up to 8,
+    # plus PAD_W quads; filter rows rounded up to a quad
+    assert smem_footprint(CONFIGS[0], 3, 3) == 4 * (18 * 136 + 3 * 4)
     assert smem_footprint({**CONFIGS[0], "PAD_W": 1}, 3, 3) == \
-        4 * (18 * 131 + 9)
+        4 * (18 * 140 + 3 * 4)
     assert smem_footprint(CONFIGS[3], 11, 11) == 0
+    # the JAX heuristic at 11x11: 8 adjacent columns a thread, one group
+    assert micro_tile(heuristic_config(8192, 4096, 11, 11), 11, 11) == \
+        (1, 8, 1)
+    assert micro_tile(CONFIGS[2], 3, 3) == (4, 2, 1)
+    # four rows of 4 columns: 4 * (4 + 8) + 8 = 56 registers fit 64
+    assert micro_tile({**CONFIGS[0], "BLOCK_H": 64, "SUB_H": 4}, 3, 3) == \
+        (4, 4, 1)
+
+
+def _space_configs(extended, filt):
+    shape = {"H": 4096, "W": 4096, "Fh": filt[0], "Fw": filt[1]}
+    return [c for c in CONV2D.make_space(shape, extended=extended).enumerate()
+            if c["HALO_MODE"] == "materialize"]
+
+
+@pytest.mark.parametrize("extended", [False, True])
+@pytest.mark.parametrize("filt", [(3, 3), (11, 11)])
+def test_micro_tile_covers_the_block_within_the_register_cap(extended, filt):
+    fh, fw = filt
+    for c in _space_configs(extended, filt):
+        rows, cols, groups = micro_tile(c, fh, fw)
+        _, tx, _ = port_kernel.row_geometry(c)
+        assert rows == c["SUB_H"]
+        assert cols * groups * tx == c["BLOCK_W"], c
+        assert 1 <= cols <= port_kernel.MAX_GROUP_COLS
+        regs = rows * (cols + port_kernel._window(cols, fw)) + 8
+        assert regs == port_kernel.register_estimate(c, fw, cols)
+        # one column is the narrowest tile: eight rows of 11x11 windows
+        # overflow 64 registers whatever the width
+        assert regs <= port_kernel.REGISTERS or cols == 1, (c, regs)
+        # a wider group would not fit: the widest that does is taken
+        wider = [w for w in range(cols + 1, port_kernel.MAX_GROUP_COLS + 1)
+                 if (c["BLOCK_W"] // tx) % w == 0]
+        assert all(port_kernel.register_estimate(c, fw, w)
+                   > port_kernel.REGISTERS for w in wider), c
+
+
+def _owners(cfg, H, W, Fh, Fw):
+    """Image output -> the (block, thread) that stores it, mapped the way
+    csrc/conv2d.cu maps threads: thread (tx, ty) of block (bx, by) sums
+    rows ty*SUB_H + s and, in group g, columns g*CG*TX + tx*CG + k of the
+    tile, and stores those under BLOCK_W and inside the image.  Also
+    checks each window's alignment and that it stays in its tile row."""
+    bh, bw, sub = cfg["BLOCK_H"], cfg["BLOCK_W"], cfg["SUB_H"]
+    ty_n, tx_n, _ = port_kernel.row_geometry(cfg)
+    rows, cols, groups = micro_tile(cfg, Fh, Fw)
+    vec = port_kernel._vec(cols)
+    row_len = ((smem_footprint({**cfg, "PAD_W": 0}, Fh, Fw) // 4
+                - Fh * -(-Fw // 4) * 4) // (bh + Fh - 1))
+    owners = {}
+    for by in range(-(-H // bh)):
+        for bx in range(-(-W // bw)):
+            r0, c0 = by * bh, bx * bw
+            lim = min(W, c0 + bw)
+            for tid in range(block_threads(cfg)):
+                tx, ty = tid % tx_n, tid // tx_n
+                for g in range(groups):
+                    cs = g * cols * tx_n + tx * cols
+                    assert cs % vec == 0
+                    assert cs + port_kernel._window(cols, Fw) <= row_len
+                    for s in range(rows):
+                        gr = r0 + ty * sub + s
+                        for k in range(cols):
+                            gc = c0 + cs + k
+                            if gr < H and gc < lim:
+                                owners.setdefault((gr, gc), []).append(
+                                    (by, bx, tid))
+    return owners
+
+
+@pytest.mark.parametrize("cfg", [
+    CONFIGS[0], CONFIGS[1], CONFIGS[2],
+    # 12 and 6 rows: 4 and 3 row groups, so 64 and 85 threads a row, which
+    # leave 96 and 100 columns owned unevenly (2 a thread, the rest unstored)
+    {"BLOCK_H": 12, "BLOCK_W": 96, "SUB_H": 3, "UNROLL": True,
+     "HALO_MODE": "materialize"},
+    {"BLOCK_H": 6, "BLOCK_W": 100, "SUB_H": 2, "UNROLL": False,
+     "HALO_MODE": "materialize"},
+    {"BLOCK_H": 8, "BLOCK_W": 1024, "SUB_H": 1, "UNROLL": True,
+     "HALO_MODE": "materialize"}])
+def test_every_output_has_exactly_one_owner(cfg):
+    H, W, Fh, Fw = 37, 1031, 11, 11         # odd, ragged at both edges
+    owners = _owners(cfg, H, W, Fh, Fw)
+    assert set(owners) == {(r, c) for r in range(H) for c in range(W)}
+    assert all(len(o) == 1 for o in owners.values())
+
+
+@pytest.mark.parametrize("filt", [(3, 3), (7, 7), (11, 11)])
+def test_rolled_and_unrolled_builds_share_their_geometry(filt):
+    for c in _space_configs(True, filt):
+        if not c["UNROLL"]:
+            continue
+        rolled = {**c, "UNROLL": False}
+        assert block_threads(rolled) == block_threads(c)
+        assert smem_footprint(rolled, *filt) == smem_footprint(c, *filt)
+        assert micro_tile(rolled, *filt) == micro_tile(c, *filt)
 
 
 def test_model_shows_the_cliffs_and_the_bounds():
