@@ -36,6 +36,21 @@ each printing its own lines:
  10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
      causal (budget 24), lookup "exact", flash_attention(config=None) on
      (2, 8, 4096, 128) float32: one launch for all 16 heads; then
+     analyze: the static analyzer's lint over the registry at the card's
+     runtime profile (no error), no config the three searches measured
+     proven infeasible, two GEMM builds the proof rejects for shared memory
+     refused by the card's launch, and the flash search again with
+     analyze=True over its whole space, its winner held against SDPA;
+     costmodel: every config the three searches measured priced by the
+     cost model (Spearman rank correlation with the measured times), then
+     a full cost-model GEMM search over the 288-point space at 2048^3 (no
+     builds; a second one answers from the artifact store), its winner run
+     through matmul() against torch.matmul and timed beside the wall-clock
+     winner; predict: a learned predictor (pretrained on the analytical
+     model, fine-tuned on the GEMM search's trials) in an annealing search
+     at (4096, 4096, 1024) beside one without it, each winner run through
+     lookup -> matmul(), and a lookup at (1024, 4096, 4096) the predictor
+     answers ("predicted"), run and timed beside torch.matmul; then
      build_space: every distinct conv build of the extended space at 3x3,
      16 nvcc at a time, with ptxas's registers and spills (none may spill;
      after the searches, so their nvcc time stays their own)
@@ -70,6 +85,7 @@ import importlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -81,11 +97,16 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+from scipy import stats  # noqa: E402
 
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.core import (H100_SXM, WallClockEvaluator,  # noqa: E402
-                              default_cache, device_profile, lookup_resolved)
+from repro_torch.analyze import (analyze_registry,  # noqa: E402
+                                 proven_violations)
+from repro_torch.core import (H100_SXM, ArtifactStore,  # noqa: E402
+                              CostModelEvaluator, LearnedPredictor, Tuner,
+                              TuningCache, WallClockEvaluator, default_cache,
+                              device_profile, lookup_resolved)
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as cv  # noqa: E402
@@ -93,8 +114,8 @@ from repro_torch.kernels import conv2d as cv  # noqa: E402
 cv_kernel = importlib.import_module("repro_torch.kernels.conv2d.conv2d")
 from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E402
                                         gemm_reference, heuristic_config,
-                                        make_matmul, matmul, micro_tile,
-                                        smem_footprint)
+                                        lookup_config, make_matmul, matmul,
+                                        micro_tile, smem_footprint)
 from repro_torch.tune import tune_kernel  # noqa: E402
 
 SOURCE = "src/repro_torch/kernels/matmul/csrc/gemm.cu"
@@ -818,6 +839,310 @@ def phase_flash_main(main, op_lead, device, budget):
     return record
 
 
+# ---------------------------------------------------------------------------
+# the layers above the kernels: analyzer, cost model, predictor
+# ---------------------------------------------------------------------------
+
+#: two GEMM configs of the extended space's raw product whose shared memory
+#: (PIPELINE_DEPTH stages of BLOCK_K x (BLOCK_M + BLOCK_N) floats) is over
+#: one H100 block's 232,448 B: 262,144 B and 294,912 B
+OVER_SMEM = [
+    {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 64, "PIPELINE_DEPTH": 4},
+    {"BLOCK_M": 64, "BLOCK_N": 128, "BLOCK_K": 128, "PIPELINE_DEPTH": 3}]
+
+#: profile fields the [analyze] line prints, runtime beside datasheet
+LIMITS = ("smem_per_block_optin", "max_threads_per_block", "sm_count",
+          "regs_per_sm", "l2_bytes", "hbm_bytes")
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0 (just before a path)."""
+    for counts in (LAUNCHES, cv.LAUNCHES, fa.LAUNCHES):
+        for key in counts:
+            counts[key] = 0
+
+
+def read_counts():
+    """Every kernel's launch count (just after a path)."""
+    return {**LAUNCHES, **cv.LAUNCHES, **fa.LAUNCHES}
+
+
+def _check_launched(counts, names, what):
+    """Fail on the card when none of ``names`` launched on the path."""
+    if not sum(counts[n] for n in names):
+        raise AssertionError(f"{what}: no launch of {names}: {counts}")
+
+
+def _ok_trials(rec):
+    """Distinct configs a main-path search measured as ok: (config, ms)."""
+    seen = {}
+    for cfg, ms in rec["trials"]:
+        if np.isfinite(ms):
+            seen.setdefault(json.dumps(cfg, sort_keys=True), (cfg, ms))
+    return list(seen.values())
+
+
+def spearman(x, y):
+    """Spearman's rank correlation; None when either side is constant."""
+    if len(set(x)) < 2 or len(set(y)) < 2:
+        return None
+    return float(stats.spearmanr(x, y).statistic)
+
+
+def phase_analyze(main_path, device, main_shape, flash_main):
+    """The static analyzer on the card: lint at the runtime profile, no
+    measured config proven infeasible, the proof's configs refused by the
+    card, and a flash search with the analyzer on."""
+    profile = device_profile(device)
+    zero_counts()
+    report = analyze_registry(profiles=[profile])
+    warnings = {}
+    for f in report.warnings:
+        warnings[f.rule_id] = warnings.get(f.rule_id, 0) + 1
+    record = {"limits": {k: [getattr(profile, k), getattr(H100_SXM, k)]
+                         for k in LIMITS},
+              "profile": profile.name, "findings": report.counts(),
+              "warnings_by_rule": warnings}
+    # no false proofs: every config a main-path search measured ran
+    false = []
+    for kernel, rec, shape in main_path:
+        ok = _ok_trials(rec)
+        record[f"checked_{kernel.name}"] = len(ok)
+        for cfg, _ in ok:
+            viol = proven_violations(kernel, shape, cfg, profile)
+            if viol:
+                false.append({"kernel": kernel.name, "config": cfg,
+                              "violations": viol})
+    record["false_proofs"] = false
+    # the proof holds on the card: the launch of an over-budget build fails
+    M, N, K = main_shape
+    gemm_shape = {"M": M, "N": N, "K": K, "dtype": "float32"}
+    over = [make_matmul(M, N, K, dict(heuristic_config(M, N, K), **c))
+            for c in OVER_SMEM]
+    refused = []
+    for fn in over:
+        viol = proven_violations(GEMM, gemm_shape, fn.config, profile)
+        row = {"config": {k: fn.config[k] for k in OVER_SMEM[0]},
+               "smem": smem_footprint(fn.config), "proof": viol}
+        if not viol or not viol[0].startswith("smem:"):
+            raise AssertionError(f"the proof does not reject {row}")
+        refused.append(row)
+    if device.type == "cuda":
+        with ThreadPoolExecutor(len(over)) as pool:
+            list(pool.map(lambda f: f.compile(), over))
+        a, b = inputs(main_shape, "float32", False, device)
+        for fn, row in zip(over, refused):
+            before = dict(LAUNCHES)
+            try:
+                fn(a, b)
+                row["launch"] = "accepted"
+            except RuntimeError as e:
+                row["launch"] = str(e).split(" for ")[0]
+            row["built_smem"] = fn.geometry()[1]
+            if row["launch"] == "accepted" or LAUNCHES != before:
+                raise AssertionError(f"the card launched {row}")
+    record["over_budget"] = refused
+    # a search with the analyzer on, over the flash space's every point
+    Sq, Sk, D = flash_main
+    shape = {"Sq": Sq, "Sk": Sk, "D": D, "causal": True}
+    tol = flash_bound(*fa.FLASH_ATTENTION.make_args(
+        shape, np.random.default_rng(0)))
+    outcome = tune_kernel(
+        fa.FLASH_ATTENTION, shape, strategy="full",
+        budget=fa.FLASH_ATTENTION.make_space(shape).cardinality(), seed=0,
+        evaluator=WallClockEvaluator(atol=tol, rtol=0.0, device=device),
+        profile=profile, record=False, analyze=True)
+    _check_tune(outcome, "analyzed flash")
+    best = outcome.result.best
+    q, k, v = flash_inputs((), Sq, Sk, D, "float32", device, seed=4)
+    out = fa.flash_attention(q, k, v, config=best.config)
+    sdpa = F.scaled_dot_product_attention(q[None, None], k[None, None],
+                                          v[None, None], is_causal=True)[0, 0]
+    bound = flash_bound(q, k, v)
+    record.update(
+        flash_analysis=outcome.analysis,
+        flash_proven_pruned=outcome.engine_stats["proven_pruned"],
+        flash_evaluations=outcome.result.evaluations,
+        flash_winner=best.config, flash_winner_ms=best.time * 1e3,
+        flash_err_sdpa=max_err(out, sdpa), flash_bound=bound,
+        flash_share_sdpa=tol_share(out, sdpa, bound, 0.0),
+        launches=read_counts())
+    print("[analyze] " + json.dumps(record))
+    if device.type == "cuda":
+        _check_launched(record["launches"], ["flash_attention"], "[analyze]")
+    if report.errors:
+        raise AssertionError(f"the lint found errors: {report.errors}")
+    if false:
+        raise AssertionError(f"measured configs proven infeasible: {false}")
+    if record["flash_share_sdpa"] > 1.0:
+        raise AssertionError("the analyzed flash winner disagrees with SDPA")
+    return record
+
+
+def phase_costmodel(main_path, device, main_shape, wall_winner, tmp):
+    """The cost model on the card's searches: how its prices rank the
+    measured configs, then a full cost-model GEMM search, no builds, whose
+    winner runs through matmul()."""
+    profile = device_profile(device)
+    zero_counts()
+    record = {"kernels": {}}
+    for kernel, rec, shape in main_path:
+        tuner = Tuner.from_tunable(kernel, shape, profile=profile,
+                                   evaluator=CostModelEvaluator(profile))
+        ok = _ok_trials(rec)
+        priced = [tuner.evaluator.measure(tuner._spec, cfg).time_s * 1e3
+                  for cfg, _ in ok]
+        win = tuner.evaluator.measure(tuner._spec, rec["winner"])
+        record["kernels"][kernel.name] = {
+            "configs": len(ok),
+            "spearman": spearman(priced, [ms for _, ms in ok]),
+            "winner": rec["winner"], "winner_measured_ms": rec["winner_ms"],
+            "winner_priced_ms": win.time_s * 1e3,
+            "winner_bound_by": ("operations" if win.detail["compute_t"]
+                                >= win.detail["memory_t"] else "bytes")}
+    M, N, K = main_shape
+    shape = {"M": M, "N": N, "K": K}
+    built = (len(os.listdir(build.BUILD_DIR))
+             if os.path.isdir(build.BUILD_DIR) else 0)
+    store = ArtifactStore(os.path.join(tmp, "artifacts"))
+    space = GEMM.make_space(shape).cardinality()
+    runs = []
+    for _ in range(2):                 # the second answers from the store
+        ev = CostModelEvaluator(profile)
+        ev.artifact_store = store
+        t0 = time.perf_counter()
+        outcome = tune_kernel(GEMM, shape, strategy="full", budget=space,
+                              evaluator=ev, profile=profile, record=False,
+                              warm_start=False)
+        runs.append((outcome, time.perf_counter() - t0))
+    built = (len(os.listdir(build.BUILD_DIR))
+             if os.path.isdir(build.BUILD_DIR) else 0) - built
+    outcome = runs[0][0]
+    best = outcome.result.best
+    a, b = inputs(main_shape, "float32", False, device, seed=5)
+    before = dict(LAUNCHES)
+    out = matmul(a, b, config=best.config)
+    sync(device)
+    launched = sum(LAUNCHES.values()) - sum(before.values())
+    oracle = gemm_reference(a, b)
+    fns = {"costmodel": make_matmul(M, N, K, best.config),
+           "wallclock": make_matmul(M, N, K, wall_winner)}
+    runs_ms = time_in_turns({k: (lambda fn=fn: fn(a, b))
+                             for k, fn in fns.items()}, device)
+    record.update(
+        search_evaluations=outcome.result.evaluations, space=space,
+        search_s=[round(s, 3) for _, s in runs],
+        store_hits=[o.engine_stats["artifact_hits"] for o, _ in runs],
+        libraries_built_by_search=built,
+        winner=best.config, winner_priced_ms=best.time * 1e3,
+        launches=launched,
+        err_oracle=max_err(out, oracle),
+        share_oracle=tol_share(out, oracle, MAIN_TOL, MAIN_TOL),
+        winner_ms=float(np.median(runs_ms["costmodel"])),
+        wallclock_winner=wall_winner,
+        wallclock_winner_ms=float(np.median(runs_ms["wallclock"])),
+        path_launches=read_counts())
+    print("[costmodel] " + json.dumps(record))
+    if outcome.result.evaluations != space:
+        raise AssertionError("the cost-model search did not price the space")
+    if record["libraries_built_by_search"] or runs[1][0].engine_stats[
+            "artifact_hits"] != space:
+        raise AssertionError(f"the cost-model search built or missed: "
+                             f"{record}")
+    if device.type == "cuda" and record["launches"] != 1:
+        raise AssertionError("matmul() did not launch the cost-model winner")
+    if record["share_oracle"] > 1.0:
+        raise AssertionError("the cost-model winner disagrees with "
+                             "torch.matmul")
+    return record
+
+
+def phase_predict(main_rec, device, main_shape, new_shape, lookup_shape,
+                  budget, tmp):
+    """A learned predictor trained on the [main] search: two searches at a
+    shape no phase tunes (predictor off / on, pruning), each winner run
+    through lookup -> matmul(), and a predicted lookup run on the card."""
+    profile = device_profile(device)
+    zero_counts()
+    M, N, K = main_shape
+    model = LearnedPredictor(GEMM, profile=profile)
+    pretrained = model.pretrain([{"M": M, "N": N, "K": K}], limit=256)
+    rows = [{"shape": {"M": M, "N": N, "K": K}, "config": cfg,
+             "time_s": t / 1e3} for cfg, t in main_rec["trials"]
+            if np.isfinite(t)]
+    model.finetune(rows)
+    record = {"pretrained": pretrained, "finetuned": len(rows),
+              "model": model.name, "searches": {}}
+    shape = dict(zip(("M", "N", "K"), new_shape), dtype="float32")
+    a, b = inputs(new_shape, "float32", False, device, seed=6)
+    oracle = gemm_reference(a, b)
+    for label, predictor in (("off", "off"), ("learned", model)):
+        path = os.path.join(tmp, f"predict-{label}.json")
+        shutil.copy(default_cache().path, path)     # the same warm start
+        cache = TuningCache(path)
+        t0 = time.perf_counter()
+        outcome = tune_kernel(
+            GEMM, shape, strategy="annealing", budget=budget, seed=0,
+            evaluator=WallClockEvaluator(atol=MAIN_TOL, rtol=MAIN_TOL,
+                                         device=device),
+            profile=profile, cache=cache, predictor=predictor,
+            engine={"predict_prune": True})
+        wall_s = time.perf_counter() - t0
+        _check_tune(outcome, f"predictor-{label} GEMM")
+        stats = outcome.engine_stats
+        cfg = lookup_config(*new_shape, profile=profile, cache=cache)
+        if cfg != outcome.best_config:
+            raise AssertionError(f"lookup gave {cfg}")
+        out = matmul(a, b, config=cfg)
+        sync(device)
+        record["searches"][label] = {
+            "predictor": outcome.predictor,
+            "evaluations": outcome.result.evaluations,
+            "best_ms": outcome.best_time * 1e3, "winner": cfg,
+            "nvcc_s": stats.get("compile_total_s"),
+            "compile_calls": stats.get("compile_calls"),
+            "tune_wall_s": wall_s,
+            "predictor_rank_used": stats.get("predictor_rank_used"),
+            "predicted_pruned": stats.get("predicted_pruned"),
+            "failures_by_type": outcome.failure_summary.get("by_type", {}),
+            "err_oracle": max_err(out, oracle),
+            "share_oracle": tol_share(out, oracle, MAIN_TOL, MAIN_TOL)}
+    # the predicted step of the lookup chain: no transfer, the model picks
+    lshape = dict(zip(("M", "N", "K"), lookup_shape), dtype="float32")
+    res = lookup_resolved(GEMM, lshape, profile=profile, policy="transfer",
+                          transfer=False, predictor=model,
+                          cache=TuningCache(os.path.join(tmp, "empty.json")))
+    a, b = inputs(lookup_shape, "float32", False, device, seed=7)
+    before = dict(LAUNCHES)
+    out = matmul(a, b, config=res.config)
+    sync(device)
+    launched = sum(LAUNCHES.values()) - sum(before.values())
+    oracle = gemm_reference(a, b)
+    fn = make_matmul(*lookup_shape, res.config)
+    runs = time_in_turns({"predicted": lambda: fn(a, b),
+                          "library": lambda: torch.matmul(a, b)}, device)
+    record["lookup"] = {
+        "shape": list(lookup_shape), "provenance": res.provenance,
+        "predictor": res.predictor, "config": res.config,
+        "launches": launched, "err_oracle": max_err(out, oracle),
+        "share_oracle": tol_share(out, oracle, MAIN_TOL, MAIN_TOL),
+        "ms": float(np.median(runs["predicted"])),
+        "library_ms": float(np.median(runs["library"]))}
+    record["launches"] = read_counts()
+    print("[predict] " + json.dumps(record))
+    if device.type == "cuda":
+        _check_launched(record["launches"], ["gemm_scratch", "gemm_inplace"],
+                        "[predict]")
+    if res.provenance != "predicted":
+        raise AssertionError(f"the predicted lookup gave {res}")
+    shares = [r["share_oracle"] for r in record["searches"].values()]
+    if max(shares + [record["lookup"]["share_oracle"]]) > 1.0:
+        raise AssertionError("a [predict] config disagrees with torch.matmul")
+    if device.type == "cuda" and launched != 1:
+        raise AssertionError("matmul() did not launch the predicted config")
+    return record
+
+
 def _bound(ops, nbytes):
     t_ops = ops / H100_SXM.peak_f32_flops
     t_bytes = nbytes / H100_SXM.hbm_bw
@@ -992,6 +1317,7 @@ def main(argv=None):
             (128, 256, 7, 7), (128, 256, 11, 11)]
         big_s, flash_main, flash_lead = 512, (256, 256, 64), (2, 2)
         conv_budget, flash_budget = 6, 4
+        predict_shape, lookup_shape = (512, 512, 128), (128, 512, 512)
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1003,6 +1329,8 @@ def main(argv=None):
             (8192, 4096, 7, 7), (8192, 4096, 11, 11)]
         big_s, flash_main, flash_lead = 4096, (4096, 4096, 128), (2, 8)
         conv_budget, flash_budget = 48, 24
+        # shapes no other phase tunes
+        predict_shape, lookup_shape = (4096, 4096, 1024), (1024, 4096, 4096)
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "tuned_configs.json")
 
@@ -1032,21 +1360,39 @@ def main(argv=None):
     flash_heur = fa.make_flash_attention(
         *flash_main, fa.heuristic_config(*flash_main))
     new = {}
-    for phase, fn, fargs in [
-            ("build_new", phase_build_new,
-             (list(conv_fns.values()) + conv_heur + conv_large
-              + list(flash_fns.values()) + [flash_heur], device)),
-            ("conv_sweep", phase_conv_sweep, (ccases, conv_fns, big, device)),
-            ("flash_sweep", phase_flash_sweep,
-             (fcases, flash_fns, big_s, device)),
-            ("conv_main", phase_conv_main,
-             (conv_main, conv_big, device, conv_budget)),
-            ("flash_main", phase_flash_main,
-             (flash_main, flash_lead, device, flash_budget)),
+
+    def main_path():
+        """(declaration, main-path record, shape) of each search."""
+        M, N, K = main_shape
+        return [(GEMM, main_rec, {"M": M, "N": N, "K": K}),
+                (cv.CONV2D, new["conv_main"],
+                 dict(zip(("H", "W", "Fh", "Fw"), conv_main))),
+                (fa.FLASH_ATTENTION, new["flash_main"],
+                 dict(zip(("Sq", "Sk", "D"), flash_main), causal=True))]
+
+    for phase, run in [
+            ("build_new", lambda: phase_build_new(
+                list(conv_fns.values()) + conv_heur + conv_large
+                + list(flash_fns.values()) + [flash_heur], device)),
+            ("conv_sweep", lambda: phase_conv_sweep(ccases, conv_fns, big,
+                                                    device)),
+            ("flash_sweep", lambda: phase_flash_sweep(fcases, flash_fns,
+                                                      big_s, device)),
+            ("conv_main", lambda: phase_conv_main(conv_main, conv_big, device,
+                                                  conv_budget)),
+            ("flash_main", lambda: phase_flash_main(flash_main, flash_lead,
+                                                    device, flash_budget)),
+            ("analyze", lambda: phase_analyze(main_path(), device, main_shape,
+                                              flash_main)),
+            ("costmodel", lambda: phase_costmodel(
+                main_path(), device, main_shape, main_rec["winner"], tmp)),
+            ("predict", lambda: phase_predict(
+                main_rec, device, main_shape, predict_shape, lookup_shape,
+                16, tmp)),
             # after the searches, which build their own configurations
-            ("build_space", phase_build_space, (device,))]:
+            ("build_space", lambda: phase_build_space(device))]:
         t0 = time.perf_counter()
-        new[phase] = fn(*fargs)
+        new[phase] = run()
         print(f"[phase] {phase}: {time.perf_counter() - t0:.1f} s")
     conv_rec, flash_rec = new["conv_main"], new["flash_main"]
     if conv_rec["best_kernel_config"] is None:

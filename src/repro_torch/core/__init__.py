@@ -1,10 +1,14 @@
 """repro_torch.core — the paper's contribution: a generic auto-tuner.
 
-Public API surface (the CLTune analogue), as far as it is ported:
+Public API surface (the CLTune analogue):
 
     from repro_torch.core import Tuner, Parameter, SearchSpace
-    from repro_torch.core import WallClockEvaluator, AnalyticalEvaluator
+    from repro_torch.core import WallClockEvaluator, CostModelEvaluator, \
+        AnalyticalEvaluator
     from repro_torch.core import make_strategy, device_profile, H100_SXM
+
+The JAX package's ``core/hlo.py`` has its twin in ``core/cost.py``
+(declared FLOPs and bytes in place of XLA's ``cost_analysis()``).
 """
 
 from .artifacts import (ARTIFACT_FORMAT_VERSION, ArtifactStore,
@@ -12,9 +16,11 @@ from .artifacts import (ARTIFACT_FORMAT_VERSION, ArtifactStore,
                         resolve_store, spec_fingerprint)
 from .cache import (CacheEntry, TuningCache, default_cache, shape_distance,
                     split_key)
+from .cost import KernelCost, declared_cost
 from .engine import EngineConfig, EngineStats, EvaluationEngine
 from .envknobs import env_bool, env_int, env_str, parse_bool
-from .evaluators import (AnalyticalEvaluator, Evaluator, KernelSpec,
+from .evaluators import (AnalyticalEvaluator, ArrivalTraceEvaluator,
+                         CostModelEvaluator, Evaluator, KernelSpec,
                          Measurement, WallClockEvaluator, make_evaluator,
                          median_prune_loop)
 from .failures import (CompileError, EvaluationError, EvaluationTimeout,
@@ -23,6 +29,10 @@ from .failures import (CompileError, EvaluationError, EvaluationTimeout,
                        summarize_failures)
 from .metrics import (DEFAULT_OBJECTIVE, Metrics, Objective,
                       default_objective)
+from .predict import (PREDICTOR_KINDS, CostModelPredictor,
+                      HeuristicPredictor, LearnedPredictor, Predictor,
+                      TransferPredictor, make_predictor, resolve_predictor,
+                      train_from_cache, training_fingerprint)
 from .profiles import (H100_SXM, PROFILES, DeviceProfile, device_profile,
                        get_profile, resolve_profile)
 from .registry import (REGISTRY, AutotunePolicy, KernelRegistry, Resolution,
@@ -43,14 +53,19 @@ __all__ = [
     "StoreStats", "default_store", "resolve_store", "spec_fingerprint",
     "CacheEntry", "TuningCache", "default_cache", "shape_distance",
     "split_key",
+    "KernelCost", "declared_cost",
     "EngineConfig", "EngineStats", "EvaluationEngine",
     "env_bool", "env_int", "env_str", "parse_bool",
-    "AnalyticalEvaluator", "Evaluator", "KernelSpec", "Measurement",
-    "WallClockEvaluator", "make_evaluator", "median_prune_loop",
+    "AnalyticalEvaluator", "ArrivalTraceEvaluator", "CostModelEvaluator",
+    "Evaluator", "KernelSpec", "Measurement", "WallClockEvaluator",
+    "make_evaluator", "median_prune_loop",
     "DEFAULT_OBJECTIVE", "Metrics", "Objective", "default_objective",
     "CompileError", "EvaluationError", "EvaluationTimeout", "FailureRecord",
     "InfeasibleConfigError", "MeasureError", "RetryPolicy", "TransientError",
     "VerificationFailure", "summarize_failures",
+    "PREDICTOR_KINDS", "CostModelPredictor", "HeuristicPredictor",
+    "LearnedPredictor", "Predictor", "TransferPredictor", "make_predictor",
+    "resolve_predictor", "train_from_cache", "training_fingerprint",
     "H100_SXM", "PROFILES", "DeviceProfile", "device_profile",
     "get_profile", "resolve_profile",
     "REGISTRY", "AutotunePolicy", "KernelRegistry", "Resolution",

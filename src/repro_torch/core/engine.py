@@ -114,12 +114,12 @@ class EngineConfig:
     #: when set, else ``median_time`` — the legacy scalar path,
     #: trial-identical to pre-objective behavior)
     objective: "Objective | str | None" = None
-    #: optional predictor instance.  When set, every strategy ``ask()``
-    #: batch is ranked predictor-first (best predicted config
-    #: compiles/measures first), and — with ``predict_prune`` —
-    #: predicted-infeasible configs are answered ``inf`` without
-    #: compiling.  The predictor is not ported yet, so anything but None
-    #: raises ``NotImplementedError``.
+    #: optional :class:`~repro_torch.core.predict.Predictor` instance.
+    #: When set, every strategy ``ask()`` batch is ranked predictor-first
+    #: (best predicted config compiles/measures first), and — with
+    #: ``predict_prune`` — predicted-infeasible configs are answered
+    #: ``inf`` without compiling.  None (the default) leaves every search
+    #: trial-identical to the predictor-less engine.
     predictor: Optional[Any] = None
     #: prune predicted-infeasible configs before compile.  None defers to
     #: the REPRO_PREDICT_PRUNE env knob (strict bool, default off) when a
@@ -133,11 +133,12 @@ class EngineConfig:
     #: below this threshold
     predict_threshold: float = 0.5
     #: optional *proven*-infeasibility checker (``config -> [violations]``,
-    #: e.g. a declared shared-memory footprint against the device budget):
-    #: configs with a non-empty violation list are answered ``inf``
-    #: without compiling.  Unlike ``predict_prune`` this is a static
-    #: proof, so there is no survivor-fraction hedge — a proof needs none.  None (default) leaves every search
-    #: trial-identical to the checker-less engine.
+    #: e.g. :func:`repro_torch.analyze.proven_checker`): configs with a
+    #: non-empty violation list are answered ``inf`` without compiling.
+    #: Unlike ``predict_prune`` this is a static proof (declared shared
+    #: memory and threads against the device limits), so there is no
+    #: survivor-fraction hedge — a proof needs none.  None (default)
+    #: leaves every search trial-identical to the checker-less engine.
     proven_checker: Optional[Callable[[Config], List[str]]] = None
 
     def __post_init__(self):
@@ -154,11 +155,13 @@ class EngineConfig:
         # set, else median_time) at construction time
         self.objective = (default_objective() if self.objective is None
                           else Objective.coerce(self.objective))
-        if self.predictor is not None:
-            # the predictor layer (core/predict.py) is not ported yet
-            raise NotImplementedError(
-                "EngineConfig.predictor: core/predict.py is not ported yet "
-                "(ROADMAP.md, Queue 1)")
+        if self.predict_prune is None and self.predictor is not None:
+            # pruning is meaningless without a predictor, so the env knob
+            # is only consulted once one is attached — a later
+            # dataclasses.replace(engine, predictor=...) re-runs this and
+            # picks the knob up; until then None stays (falsy = off)
+            from .predict import predict_prune_default
+            self.predict_prune = predict_prune_default()
         if not (0.0 < self.predict_survivors <= 1.0):
             raise ValueError("predict_survivors must be in (0, 1]")
         if not (0.0 <= self.predict_threshold <= 1.0):
@@ -437,7 +440,7 @@ class EvaluationEngine:
 
         Driven by ``EngineConfig.proven_checker`` (a static resource
         proof, e.g. a declared shared-memory footprint vs the device
-        budget).  Unlike :meth:`_predictor_gate` there is
+        budget — see :mod:`repro_torch.analyze`).  Unlike :meth:`_predictor_gate` there is
         no survivor-fraction guard and no threshold: a proof needs no
         hedge, and because the analytical/compile path scores the same
         configs ``inf`` anyway, pruning them cannot change the winner —

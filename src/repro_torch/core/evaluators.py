@@ -5,22 +5,28 @@ device.  Here that device is a CUDA GPU, and the measurement stays
 pluggable so that the search machinery can also run against a structural
 model of the device where no card is attached (the CPU tests).
 
-Two evaluators, one interface:
+Four evaluators, one interface:
 
 * :class:`WallClockEvaluator` — CUDA-event median timing of the built
   kernel on the card, verified against the kernel's oracle; the faithful
   CLTune measurement.  ``device="cpu"`` times the kernels' plain PyTorch
   versions on the host, for tests at small shapes.
+* :class:`CostModelEvaluator` — the kernel's declared FLOPs and bytes
+  (:mod:`repro_torch.core.cost`) priced as a roofline time against a
+  :class:`~repro_torch.core.profiles.DeviceProfile`, with no build.
 * :class:`AnalyticalEvaluator` — a structural model of the kernel on a
   :class:`~repro_torch.core.profiles.DeviceProfile` (supplied by the
   kernel's ``analytical_model``), with seeded multiplicative noise so the
   paper's stochastic-search experiments see realistic measurement jitter
   without a device.
+* :class:`ArrivalTraceEvaluator` — a kernel model priced over a modeled
+  trace of arrival shapes, one sample per arrival, for tail objectives.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple
@@ -29,6 +35,7 @@ import numpy as np
 import torch
 
 from . import verify
+from .cost import KernelCost, declared_cost
 from .artifacts import (PROVENANCE_NONE, ArtifactStore, CompiledArtifact,
                         spec_fingerprint)
 from .failures import (CompileError, EvaluationError, InfeasibleConfigError,
@@ -60,6 +67,9 @@ class KernelSpec:
     make_args: Optional[Callable[[np.random.Generator], Tuple]] = None
     #: structural time model: (config, profile) -> seconds (math.inf = infeasible)
     analytical_model: Optional[Callable[[Config, DeviceProfile], float]] = None
+    #: declared cost: config -> :class:`~repro_torch.core.cost.KernelCost`
+    #: (FLOPs and bytes), priced by the cost-model evaluator
+    cost: Optional[Callable[[Config], KernelCost]] = None
     #: reference oracle taking the same args, for SetReference verification
     reference: Optional[Callable] = None
     #: static metadata (shape key etc.) used by the results cache
@@ -350,6 +360,75 @@ class WallClockEvaluator(Evaluator):
                                            compile_s=compile_s))
 
 
+class CostModelEvaluator(Evaluator):
+    """Roofline time from the kernel's declared cost (no build, no launch).
+
+    time = max(flops / peak_f32_flops, bytes / hbm_bw) + launch_overhead,
+    on one card of ``profile``.  The declared cost
+    (:mod:`repro_torch.core.cost`) takes the place of XLA's
+    ``cost_analysis()`` of a lowered module in the JAX package; its
+    ``collective_bytes`` are carried in the payload but priced at 0, since
+    a one-card profile has no interconnect to price them against.
+
+    ``prepare`` evaluates the declared cost — no ``nvcc`` — and, when an
+    ``artifact_store`` is attached, persists the payload under kind
+    ``costmodel`` keyed by :func:`spec_fingerprint` and ``profile.name``,
+    so a second search answers from the store (``provenance="store"``,
+    ``compile_s=0``).  A configuration its declaration refuses raises
+    :class:`CompileError`, as a failed lowering does in the JAX package,
+    and is never persisted.  ``measure`` prices the payload; a store-hit
+    payload prices identically to a fresh one.
+    """
+
+    name = "costmodel"
+
+    def __init__(self, profile: Optional[DeviceProfile] = None):
+        self.profile = resolve_profile(profile)
+
+    def prepare(self, spec: KernelSpec, config: Config) -> CompiledArtifact:
+        """Evaluate the declared cost, or fetch it from the store."""
+        if spec.cost is None:
+            raise CompileError("CostModelEvaluator requires spec.cost")
+        fp = spec_fingerprint(spec.name, spec.meta, config)
+
+        def _compute() -> CompiledArtifact:
+            t0 = time.perf_counter()
+            try:
+                cost = declared_cost(spec.cost, config)
+            except Exception as e:  # noqa: BLE001 — a refused config
+                raise CompileError(f"{type(e).__name__}: {e}") from e
+            compile_s = time.perf_counter() - t0
+            payload = dict(cost.to_json(), compile_s=compile_s)
+            return CompiledArtifact(
+                kind=self.name, fingerprint=fp, profile=self.profile.name,
+                payload=payload, stats=dict(payload), compile_s=compile_s,
+                persistable=True)
+
+        if self.artifact_store is not None:
+            return self.artifact_store.get_or_compute(
+                self.name, fp, self.profile.name, _compute)
+        return _compute()
+
+    def measure(self, spec: KernelSpec, config: Config,
+                prepared=None,
+                prune_threshold_s: Optional[float] = None) -> Measurement:
+        if prepared is None:
+            prepared = self.prepare(spec, config)
+        compile_s, payload = prepared.compile_s, prepared.payload
+        flops, bytes_ = payload["flops"], payload["bytes"]
+        p = self.profile
+        compute_t = flops / p.peak_f32_flops
+        memory_t = bytes_ / p.hbm_bw
+        t = max(compute_t, memory_t) + p.launch_overhead
+        return Measurement(
+            time_s=t, ok=True, compile_s=compile_s,
+            detail={"flops": flops, "bytes": bytes_,
+                    "collective_bytes": payload["collective_bytes"],
+                    "compute_t": compute_t, "memory_t": memory_t,
+                    "collective_t": 0.0},
+            metrics=Metrics(samples=(t,), compile_s=compile_s, work=flops))
+
+
 class AnalyticalEvaluator(Evaluator):
     """Structural device model + seeded measurement noise.
 
@@ -411,10 +490,95 @@ class AnalyticalEvaluator(Evaluator):
                            metrics=Metrics(samples=samples))
 
 
+class ArrivalTraceEvaluator(Evaluator):
+    """Price one configuration against a modeled **arrival trace**.
+
+    SLO tuning measures a config against the traffic *distribution*, not
+    one fixed geometry: the sample vector has one entry per traced
+    arrival shape (times seeded log-normal jitter), so a p99 objective
+    over these metrics is literally "the tail of the modeled trace".
+    The first traced shape is the bucket's full (padded) geometry; a
+    config must be feasible there, or the whole config raises
+    :class:`InfeasibleConfigError`.  A *ragged* arrival the config
+    cannot cover (e.g. a block size that does not divide that arrival's
+    shape) is not infeasible — serving pads such a request up to the
+    bucket bound, so the sample for that arrival is the full-geometry
+    cost.  Configs with finer tiles therefore win on ragged tails
+    exactly as they do in the real padded serve path.
+
+    ``model(shape, config, profile) -> seconds`` matches the signature of
+    a :class:`~repro_torch.core.registry.TunableKernel`'s
+    ``analytical_model``, so a kernel's registered model plugs in
+    directly.  ``time_s`` stays the median of the trace (the legacy scalar
+    contract); tail objectives read the full vector through
+    ``Measurement.metrics``.  The noise is seeded from a sha256 digest of
+    the seed, the arrival index and the config, so it is the same in every
+    process and equal to the JAX package's.
+    """
+
+    name = "trace"
+
+    def __init__(self, model: Callable[[Dict[str, Any], Config, DeviceProfile],
+                                       float],
+                 trace, profile: Optional[DeviceProfile] = None,
+                 noise_sigma: float = 0.03, seed: int = 0):
+        if not trace:
+            raise ValueError("ArrivalTraceEvaluator requires a non-empty trace")
+        self.model = model
+        self.trace = tuple(dict(s) for s in trace)
+        self.profile = resolve_profile(profile)
+        self.noise_sigma = noise_sigma
+        self.seed = seed
+
+    def _noise(self, config: Config, index: int) -> float:
+        if self.noise_sigma <= 0:
+            return 1.0
+        # stable digest, NOT hash(): str hashing is per-process randomized
+        # and a retune winner must reproduce across processes/hosts
+        text = repr((self.seed, index) + tuple(sorted(
+            (k, str(v)) for k, v in config.items())))
+        h = int.from_bytes(hashlib.sha256(text.encode()).digest()[:4], "big")
+        rng = np.random.default_rng(h)
+        return float(np.exp(rng.normal(0.0, self.noise_sigma)))
+
+    def measure(self, spec: KernelSpec, config: Config,
+                prepared=None,
+                prune_threshold_s: Optional[float] = None) -> Measurement:
+        samples: List[float] = []
+        padded = 0
+        full_t: Optional[float] = None
+        for i, shape in enumerate(self.trace):
+            try:
+                t = float(self.model(shape, config, self.profile))
+            except Exception as e:  # noqa: BLE001
+                raise MeasureError(f"{type(e).__name__}: {e}") from e
+            if not math.isfinite(t):
+                if full_t is None:
+                    # the bucket's own geometry (trace[0]) must work
+                    raise InfeasibleConfigError(
+                        f"infeasible at bucket geometry {shape!r}")
+                # ragged arrival the tiles can't cover: serving pads it
+                # up to the bucket bound, so it costs the full geometry
+                t = full_t
+                padded += 1
+            if full_t is None:
+                full_t = t
+            samples.append(t * self._noise(config, i))
+        return Measurement(
+            time_s=float(np.median(samples)), ok=True,
+            detail={"trace_len": float(len(samples)),
+                    "padded_arrivals": float(padded),
+                    "min_s": float(np.min(samples)),
+                    "max_s": float(np.max(samples))},
+            metrics=Metrics(samples=tuple(samples)))
+
+
 def make_evaluator(name: str, **kwargs) -> Evaluator:
     table = {
         "wallclock": WallClockEvaluator,
+        "costmodel": CostModelEvaluator,
         "analytical": AnalyticalEvaluator,
+        "trace": ArrivalTraceEvaluator,
     }
     try:
         return table[name](**kwargs)

@@ -49,6 +49,10 @@ class DeviceProfile:
     peak_bf16_tensor_flops: float
     #: kernel launch fixed overhead, seconds (a model constant)
     launch_overhead: float = 4.0e-6
+    #: threads one block may have: the "max workgroup size" of the paper,
+    #: 1024 on every CUDA device since compute capability 2.0 (the runtime
+    #: properties PyTorch exposes do not carry it)
+    max_threads_per_block: int = 1024
 
     def fits_smem(self, nbytes: int) -> bool:
         """Whether a declared shared-memory footprint fits one block.
@@ -56,6 +60,10 @@ class DeviceProfile:
         A footprint exactly at the budget *fits* (the budget is usable
         bytes, not a strict bound)."""
         return nbytes <= self.smem_per_block_optin
+
+    def fits_threads(self, threads: int) -> bool:
+        """Whether a block of ``threads`` threads can be launched."""
+        return threads <= self.max_threads_per_block
 
 
 #: NVIDIA's H100 SXM datasheet and Hopper white paper (dense rates, 700 W)

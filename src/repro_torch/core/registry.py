@@ -33,7 +33,6 @@ Call-site resolution, with the tune-on-miss policy of dynamic autotuners
 
 A config is resolved for a :class:`DeviceProfile`; where none is given
 it is the profile of the current CUDA device (:func:`device_profile`).
-Prediction (``predictor=``) is not ported yet: asking for it raises.
 """
 
 from __future__ import annotations
@@ -41,13 +40,13 @@ from __future__ import annotations
 import dataclasses
 import enum
 import logging
-from typing import (Any, Callable, Dict, Iterator, Mapping, Optional,
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
                     Sequence, Tuple)
 
 import numpy as np
 
 from .cache import CacheEntry, TuningCache, default_cache
-from .envknobs import env_bool, env_str
+from .envknobs import env_str
 from .failures import EvaluationError
 from .profiles import DeviceProfile, resolve_profile
 from .space import Config, SearchSpace
@@ -134,6 +133,15 @@ class TunableKernel:
     #: shared memory one block claims: (shape, config) -> bytes, for the
     #: device auto-constraint
     smem_footprint: Optional[Callable[[Shape, Config], int]] = None
+    #: threads one block has: (shape, config) -> int, for the device
+    #: limit of 1024 (:mod:`repro_torch.analyze` proves configs over it)
+    block_threads: Optional[Callable[[Shape, Config], int]] = None
+    #: registers one thread needs, roughly: (shape, config) -> int.  ptxas
+    #: decides the real count, so the analyzer only advises from it
+    register_estimate: Optional[Callable[[Shape, Config], int]] = None
+    #: declared cost: (shape, config) -> :class:`~repro_torch.core.cost.
+    #: KernelCost`, the FLOPs and bytes the cost-model evaluator prices
+    cost: Optional[Callable[[Shape, Config], Any]] = None
     #: shape -> oracle callable, for SetReference-style verification
     reference: Optional[Callable[[Shape], Callable]] = None
     #: shapes a TuningSession sweeps when none are given explicitly
@@ -181,7 +189,8 @@ class TunableKernel:
 
     def __repr__(self) -> str:
         opt = [f for f in ("make_args", "analytical_model",
-                           "smem_footprint", "reference")
+                           "smem_footprint", "block_threads",
+                           "register_estimate", "cost", "reference")
                if getattr(self, f) is not None]
         return f"TunableKernel({self.name!r}, with={opt})"
 
@@ -263,6 +272,9 @@ def tunable(name: str, *, space: Callable[..., SearchSpace],
             make_args: Optional[Callable] = None,
             analytical_model: Optional[Callable] = None,
             smem_footprint: Optional[Callable] = None,
+            block_threads: Optional[Callable] = None,
+            register_estimate: Optional[Callable] = None,
+            cost: Optional[Callable] = None,
             reference: Optional[Callable] = None,
             default_shapes: Sequence[Mapping[str, Any]] = (),
             defaults: Optional[Dict[str, Any]] = None,
@@ -281,7 +293,8 @@ def tunable(name: str, *, space: Callable[..., SearchSpace],
             name=name, build=build, space=space, heuristic=heuristic,
             shape_key=shape_key, make_args=make_args,
             analytical_model=analytical_model, smem_footprint=smem_footprint,
-            reference=reference,
+            block_threads=block_threads, register_estimate=register_estimate,
+            cost=cost, reference=reference,
             default_shapes=tuple(dict(s) for s in default_shapes),
             defaults=dict(defaults or {}), tags=tuple(tags))
         if register:
@@ -355,28 +368,21 @@ def _validated_heuristic(k: TunableKernel, shape: Shape) -> Config:
     return cfg
 
 
-def refuse_unported(predictor: Any = None,
-                    analyze: Optional[bool] = None) -> None:
-    """Raise where a caller asks for a layer the port does not have yet.
+def _proven_violations(k: TunableKernel, shape: Shape, config: Config,
+                       profile: DeviceProfile) -> List[str]:
+    """Static resource proofs against serving ``config`` on ``profile``.
 
-    The JAX package's predictor (``core/predict.py``) and static analyzer
-    (``analyze/``) wait for their port (ROADMAP.md, Queue 1).  With both
-    off — None arguments and the ``REPRO_PREDICTOR`` / ``REPRO_ANALYZE``
-    env knobs unset — a search or lookup is the same as the JAX package's
-    with those layers off; anything else raises rather than silently
-    running without them."""
-    if predictor is None:
-        predictor = env_str("REPRO_PREDICTOR", "off")
-    if not (isinstance(predictor, str) and predictor.lower() == "off"):
-        raise NotImplementedError(
-            f"predictor={predictor!r}: core/predict.py is not ported yet "
-            "(ROADMAP.md, Queue 1)")
-    if analyze is None:
-        analyze = env_bool("REPRO_ANALYZE", False)
-    if analyze:
-        raise NotImplementedError(
-            "analyze=True: the static analyzer (analyze/) is not ported yet "
-            "(ROADMAP.md, Queue 1)")
+    The transfer/predicted steps of the fallback chain borrow configs
+    tuned elsewhere; a config tuned on a card with more shared memory
+    must not be served onto one with less when its *declared* footprint
+    proves it cannot fit.  Late import mirrors the ``tune.api`` pattern —
+    ``repro_torch.analyze`` sits above the core.  Empty list = no proof.
+    """
+    try:
+        from ..analyze.resource import proven_violations
+        return proven_violations(k, shape, config, profile)
+    except Exception:  # noqa: BLE001 — a proof layer must never break lookup
+        return []
 
 
 def transfer_config(k: TunableKernel, shape: Shape, *,
@@ -406,10 +412,59 @@ def transfer_config(k: TunableKernel, shape: Shape, *,
         # out-of-space values to a call site that will build with them
         usable = usable_seeds(space, [entry.config])
         if usable:
+            proven = _proven_violations(k, shape, usable[0], profile)
+            if proven:
+                log.info("transfer: rejecting config tuned for %s (proven "
+                         "infeasible on %s: %s): %s", entry.shape,
+                         profile.name, "; ".join(proven),
+                         dict(entry.config))
+                continue
             return usable[0], entry
         log.info("transfer: rejecting config tuned for %s (infeasible for "
                  "%s): %s", entry.shape, dict(shape), dict(entry.config))
     return None
+
+
+def _predicted_config(k: TunableKernel, shape: Shape, *,
+                      profile: DeviceProfile,
+                      cache: Optional[TuningCache],
+                      predictor: Any
+                      ) -> Optional[Tuple[Config, str]]:
+    """PREDICTED step of the fallback chain: ask the configured predictor
+    for a config, sanitized exactly like a transferred seed.
+
+    Never raises — a broken model must degrade to the heuristic, not take
+    the call site down.  Returns ``(config, predictor_name)`` or None.
+    """
+    from .predict import resolve_predictor   # late: keeps default path lean
+    try:
+        # suggestion + feasibility check run in the kernel's declared
+        # default space — the one registry-served configs execute in
+        extended = bool(k.defaults.get("extended_space", False))
+        pred = resolve_predictor(predictor, k, profile=profile, cache=cache,
+                                 extended=extended)
+        if pred is None:
+            return None
+        suggested = pred.suggest(dict(shape), profile, k=1)
+        if not suggested:
+            return None
+        space = k.make_space(dict(shape), extended=extended)
+        usable = usable_seeds(space, suggested)
+        if not usable:
+            log.info("predicted config for %s rejected (infeasible): %s",
+                     k.name, suggested[0])
+            return None
+        proven = _proven_violations(k, shape, usable[0], profile)
+        if proven:
+            log.info("predicted config for %s rejected (proven infeasible "
+                     "on %s: %s): %s", k.name, profile.name,
+                     "; ".join(proven), usable[0])
+            return None
+        return usable[0], getattr(pred, "name", type(pred).__name__)
+    except Exception as e:  # noqa: BLE001 — prediction is advisory
+        log.warning("predictor failed for %s shape=%s (%s: %s); falling "
+                    "through", k.name, dict(shape), type(e).__name__, e)
+        return None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -422,9 +477,8 @@ class Resolution:
                         migrated from the legacy key format);
     * ``"transfer"``  — borrowed from the nearest tuned shape
                         (``source_shape`` says which);
-    * ``"predicted"`` — suggested by a predictor (``predictor`` names
-                        which one; not produced until the predictor is
-                        ported);
+    * ``"predicted"`` — suggested by a :mod:`repro_torch.core.predict`
+                        predictor (``predictor`` names which one);
     * ``"tuned"``     — a search ran right now (ON_MISS/ALWAYS) and won;
     * ``"heuristic"`` — the declared static fallback.
 
@@ -462,14 +516,17 @@ def lookup_resolved(kernel: "TunableKernel | str", shape: Shape, *,
     """:func:`lookup`, returning the config *with provenance*.
 
     Resolution order: tuned-cache hit -> (policy permitting) nearest-shape
-    config transfer -> (policy permitting) one-shot tune recorded back into
-    the cache -> the kernel's declared heuristic.  This is the single code
-    path behind every public op's ``config=None`` default.  ``profile``
-    defaults to the current CUDA device's.
+    config transfer -> (TRANSFER policy) predictor suggestion -> (policy
+    permitting) one-shot tune recorded back into the cache -> the kernel's
+    declared heuristic.  This is the single code path behind every public
+    op's ``config=None`` default.  ``profile`` defaults to the current CUDA
+    device's.
 
-    ``predictor`` must stay off (None, with ``REPRO_PREDICTOR`` unset):
-    the JAX package's predictor step is not ported yet, and asking for it
-    raises.
+    ``predictor`` is anything
+    :func:`repro_torch.core.predict.resolve_predictor` accepts (None = the
+    ``REPRO_PREDICTOR`` env default, a kind string, or an instance); with
+    the default off, resolution is byte-identical to the predictor-less
+    chain.
 
     ``transfer`` sizes the nearest-neighbour pool consulted by the
     ``TRANSFER`` policy and by ``ON_MISS``/``ALWAYS`` warm starting
@@ -485,10 +542,12 @@ def lookup_resolved(kernel: "TunableKernel | str", shape: Shape, *,
     key = k.key_for(shape)
 
     def _res(config: Config, provenance: str,
-             source_shape: Optional[Dict[str, Any]] = None) -> Resolution:
+             source_shape: Optional[Dict[str, Any]] = None,
+             predictor_name: Optional[str] = None) -> Resolution:
         return Resolution(config=config, provenance=provenance,
                           kernel=k.name, shape=dict(shape), key=key,
-                          profile=profile.name, source_shape=source_shape)
+                          profile=profile.name, source_shape=source_shape,
+                          predictor=predictor_name)
 
     # NB: `is` checks — `transfer=1` means k=1, but `1 in (None, True)`
     # would be True under ==
@@ -512,8 +571,12 @@ def lookup_resolved(kernel: "TunableKernel | str", shape: Shape, *,
                          k.name, key, src.shape)
                 return _res(cfg, "transfer",
                             dict(src.shape) if src.shape else None)
-            # the JAX package asks the predictor here, before the heuristic
-            refuse_unported(predictor=predictor)
+            predicted = _predicted_config(k, shape, profile=profile,
+                                          cache=cache, predictor=predictor)
+            if predicted is not None:
+                cfg, pname = predicted
+                log.info("predicted: %s %s <- %s", k.name, key, pname)
+                return _res(cfg, "predicted", predictor_name=pname)
             return _res(_validated_heuristic(k, shape), "heuristic")
 
     # tune-on-miss / always: run the generic one-shot search, warm-started

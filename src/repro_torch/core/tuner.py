@@ -28,11 +28,9 @@ it as a compatibility layer).
 geometry are derived from the block shape inside ``build``, so that
 bookkeeping lives with the kernel, not the tuner.  Device-limit
 auto-constraints (paper III-A) are imposed from the DeviceProfile when a
-kernel declares its shared-memory footprint function.
-
-The static analyzer (``analyze=``) and the predictor (``predictor=``) of
-the JAX package are not ported yet; asking for either raises
-``NotImplementedError`` instead of searching without it.
+kernel declares its shared-memory footprint function; with ``analyze=``
+the declared footprint and threads per block also *prove* configs
+infeasible before they are built (:mod:`repro_torch.analyze`).
 """
 
 from __future__ import annotations
@@ -47,7 +45,7 @@ from .engine import EngineConfig, EvaluationEngine
 from .evaluators import (AnalyticalEvaluator, Evaluator, KernelSpec,
                          Measurement, WallClockEvaluator)
 from .profiles import DeviceProfile, resolve_profile
-from .registry import Shape, TunableKernel, refuse_unported, resolve
+from .registry import Shape, TunableKernel, resolve
 from .space import Config, Parameter, SearchSpace
 from .strategies import SearchResult, Strategy, make_strategy
 
@@ -69,6 +67,11 @@ class TuningOutcome:
     engine_stats: Optional[Dict[str, Any]] = None
     #: canonical spec of the objective the search minimized
     objective: Optional[str] = None
+    #: name of the predictor that ranked/pruned the search (None = off)
+    predictor: Optional[str] = None
+    #: pre-search static-analysis stats (:mod:`repro_torch.analyze`;
+    #: None = off)
+    analysis: Optional[Dict[str, Any]] = None
 
     @property
     def best_config(self) -> Optional[Config]:
@@ -128,6 +131,25 @@ class TuningOutcome:
                 f"{s.get('compile_failures', 0)}+"
                 f"{s.get('measure_failures', 0)} compile+measure failures, "
                 f"overlap={s.get('compile_overlap_ratio', 0.0):.0%})")
+            if self.predictor:
+                lines.append(
+                    f"predictor: {self.predictor} "
+                    f"(ranked {s.get('predictor_rank_used', 0)} batches, "
+                    f"pruned {s.get('predicted_pruned', 0)} predicted-"
+                    f"infeasible configs before compile)")
+            if self.analysis:
+                a = self.analysis
+                fc = a.get("findings", {})
+                lines.append(
+                    f"analysis: {a.get('feasible', '?')}/"
+                    f"{a.get('examined', '?')} examined configs feasible "
+                    f"({a.get('confidence', '?')}), "
+                    f"{a.get('dead_values', 0)} dead value(s), findings "
+                    f"{fc.get('error', 0)}e/{fc.get('warning', 0)}w/"
+                    f"{fc.get('info', 0)}i, proven checker "
+                    f"{'on' if a.get('proven_checker') else 'off'} "
+                    f"({s.get('proven_pruned', 0)} proven-infeasible "
+                    f"pruned)")
         return "\n".join(lines)
 
 
@@ -147,7 +169,11 @@ class Tuner:
         self._cache = cache
         self._reference: Optional[Callable] = None
         self._smem_footprint: Optional[Callable[[Config], int]] = None
+        self._block_threads: Optional[Callable[[Config], int]] = None
         self._smem_constraint_added = False
+        #: the declaration a tuner was built from (None = fluent tuner)
+        self._tunable: Optional[TunableKernel] = None
+        self._extended_space = False
         # attach the persistent compile-artifact store (an instance, a root
         # directory, or None = the REPRO_ARTIFACT_CACHE-gated process
         # default) — without clobbering a store the evaluator already has
@@ -200,8 +226,14 @@ class Tuner:
                               if k.analytical_model is not None else None),
             smem_footprint=((lambda cfg: k.smem_footprint(shape, cfg))
                             if k.smem_footprint is not None else None),
+            block_threads=((lambda cfg: k.block_threads(shape, cfg))
+                           if k.block_threads is not None else None),
+            cost=((lambda cfg: k.cost(shape, cfg))
+                  if k.cost is not None else None),
             meta=dict(shape))
         tuner._shape = shape
+        tuner._tunable = k
+        tuner._extended_space = bool(extended_space)
         return tuner
 
     # -- CLTune-style declaration ---------------------------------------------
@@ -210,6 +242,8 @@ class Tuner:
                    make_args: Optional[Callable] = None,
                    analytical_model: Optional[Callable] = None,
                    smem_footprint: Optional[Callable[[Config], int]] = None,
+                   block_threads: Optional[Callable[[Config], int]] = None,
+                   cost: Optional[Callable] = None,
                    meta: Optional[Dict[str, Any]] = None) -> "Tuner":
         """Register the (single) kernel under tuning.
 
@@ -217,15 +251,19 @@ class Tuner:
         device-limit constraint: configurations whose shared memory exceeds
         what one block may claim on the profile are infeasible before any
         evaluation — CLTune auto-constraining on OpenCL local-memory size.
+        ``block_threads(config) -> threads`` feeds the analyzer's proof
+        against the profile's threads per block (``analyze=``), and
+        ``cost(config) -> KernelCost`` the cost-model evaluator.
         """
         if self._spec is not None:
             raise ValueError("a kernel is already registered; "
                              "use one Tuner per kernel")
         self._spec = KernelSpec(
             name=name, build=build, make_args=make_args,
-            analytical_model=analytical_model,
+            analytical_model=analytical_model, cost=cost,
             reference=self._reference, meta=meta or {})
         self._smem_footprint = smem_footprint
+        self._block_threads = block_threads
         self._smem_constraint_added = False
         return self
 
@@ -262,6 +300,55 @@ class Tuner:
         self.space.add_constraint(_fits, names, label="device:smem")
         self._smem_constraint_added = True
 
+    # -- pre-search static analysis ----------------------------------------------
+    def _run_analysis(self) -> Dict[str, Any]:
+        """Audit the (device-constrained) space before searching it.
+
+        Returns the stats dict attached to the outcome.  Under
+        ``REPRO_ANALYZE_STRICT`` an error-severity finding raises instead
+        of burning the search budget on a provably-broken space.
+        """
+        from ..analyze import audit_space, space_findings, strict_default
+        name = self._spec.name if self._spec is not None else "kernel"
+        report = audit_space(self.space)
+        findings = space_findings(report, kernel=name,
+                                  shape=getattr(self, "_shape", None))
+        errors = [f for f in findings if f.severity == "error"]
+        if errors and strict_default():
+            raise ValueError(
+                f"pre-search analysis found {len(errors)} error "
+                f"finding(s) for {name!r} (REPRO_ANALYZE_STRICT): "
+                + "; ".join(f.detail for f in errors[:3]))
+        for f in findings:
+            log.log(logging.WARNING if f.severity != "info"
+                    else logging.INFO, "analysis: %s", f)
+        stats = report.stats()
+        stats["findings"] = {
+            s: sum(1 for f in findings if f.severity == s)
+            for s in ("error", "warning", "info")}
+        return stats
+
+    def _proven_checker(self) -> Optional[Callable]:
+        """Static proven-infeasibility checker for the engine, built from
+        the declared shared-memory and thread models (None when neither
+        is declared)."""
+        from ..analyze.resource import limit_violations
+        foot, threads = self._smem_footprint, self._block_threads
+        if foot is None and threads is None:
+            return None
+        profile = self.profile
+
+        def check(config: Config) -> list:
+            try:
+                smem = int(foot(dict(config))) if foot is not None else None
+                n = int(threads(dict(config))) if threads is not None \
+                    else None
+            except Exception:  # noqa: BLE001 — a broken model proves nothing
+                return []
+            return limit_violations(smem, n, profile)
+
+        return check
+
     # -- search ------------------------------------------------------------------
     def tune(self, strategy: str | Strategy = "full",
              budget: Optional[int] = None, seed: int = 0,
@@ -289,16 +376,30 @@ class Tuner:
         outcome and is recorded with any cached winner, keyed so winners
         under different objectives never compare.
 
-        ``predictor`` and ``analyze`` keep the JAX package's signature;
-        neither layer is ported yet, so anything but their defaults (None,
-        with the ``REPRO_PREDICTOR`` / ``REPRO_ANALYZE`` env knobs off)
-        raises ``NotImplementedError``."""
+        ``predictor`` is anything
+        :func:`repro_torch.core.predict.resolve_predictor` accepts (None =
+        the ``REPRO_PREDICTOR`` env default, a kind string like
+        ``"learned"``, a ``{"kind", "payload"}`` dict, or an instance);
+        when resolved, the engine ranks every ask() batch predictor-first
+        and may prune predicted-infeasible configs before compile.
+
+        ``analyze`` runs the :mod:`repro_torch.analyze` pre-search pass:
+        the (device-constrained) space is audited, the stats ride on
+        ``outcome.analysis``, and the engine gets a proven-infeasibility
+        checker so configs over the device's shared memory or threads per
+        block are answered without being built
+        (``EngineStats.proven_pruned``).  None defers to the
+        ``REPRO_ANALYZE`` env knob (strict bool, default off) —
+        analyzer-off searches are trial-identical to earlier releases."""
         if self._spec is None:
             raise ValueError("no kernel registered; call add_kernel first")
         if self.space.num_dimensions == 0:
             raise ValueError("no parameters registered; call add_parameter")
-        refuse_unported(predictor=predictor, analyze=analyze)
         self._install_device_constraints()
+        if analyze is None:
+            from ..analyze import analyze_default
+            analyze = analyze_default()
+        analysis = self._run_analysis() if analyze else None
 
         strat = (strategy if isinstance(strategy, Strategy)
                  else make_strategy(strategy, **strategy_kwargs))
@@ -317,6 +418,27 @@ class Tuner:
             engine = EngineConfig(**(engine or {}))
         if objective is not None:
             engine = dataclasses.replace(engine, objective=objective)
+        if analyze and engine.proven_checker is None:
+            checker = self._proven_checker()
+            if checker is not None:
+                engine = dataclasses.replace(engine, proven_checker=checker)
+                analysis["proven_checker"] = True
+        if engine.predictor is None:
+            # resolve the predictor= argument (or the REPRO_PREDICTOR env
+            # default) — needs the kernel declaration for spaces/heuristics,
+            # so fluent tuners only accept ready Predictor instances
+            k = self._tunable
+            if k is not None:
+                from .predict import resolve_predictor
+                engine = dataclasses.replace(
+                    engine, predictor=resolve_predictor(
+                        predictor, k, profile=self.profile,
+                        cache=self._cache, objective=engine.objective,
+                        store=self.evaluator.artifact_store,
+                        extended=self._extended_space))
+            elif predictor is not None and not isinstance(predictor,
+                                                          (str, dict)):
+                engine = dataclasses.replace(engine, predictor=predictor)
         eng = EvaluationEngine(self.evaluator, self._spec, self.space,
                                config=engine)
         result = eng.run(strat, budget, seed=seed,
@@ -333,7 +455,10 @@ class Tuner:
             measurements=dict(eng.measurements),
             evaluator=self.evaluator.name, profile=self.profile.name,
             budget=budget, engine_stats=result.extra.get("engine"),
-            objective=resolved_objective.spec)
+            objective=resolved_objective.spec,
+            predictor=(getattr(engine.predictor, "name", None)
+                       if engine.predictor is not None else None),
+            analysis=analysis)
         if record_to_cache and result.best is not None:
             cache = self._cache if self._cache is not None else default_cache()
             # from_tunable stashes the problem shape in the spec's meta; a

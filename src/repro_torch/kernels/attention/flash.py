@@ -47,9 +47,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ...core.cost import KernelCost
 from ...core.profiles import DeviceProfile
 from .. import build
-from .ref import NEG
+from .ref import NEG, attention_flops
 
 Config = Dict[str, Any]
 
@@ -361,3 +362,23 @@ def analytical_time(config: Config, profile: DeviceProfile,
     concurrent = min(blocks, profile.sm_count * per_sm)
     step_t = steps * STEP_OVERHEAD_S / concurrent
     return max(compute_t, memory_t) + step_t + profile.launch_overhead
+
+
+def traffic(config: Config, Sq: int, Sk: int, D: int, *,
+            causal: bool = True, elt_bytes: int = 4) -> KernelCost:
+    """The declared cost of one head (:mod:`repro_torch.core.cost`).
+
+    FLOPs are the work itself, 4*Sq*Sk*D, halved when causal (the causal
+    half, as the bounds count it).  Bytes follow the block geometry: Q is
+    read and the output written once, and each query block reads K and V
+    from key 0 up to :func:`kv_end`, so a causal problem reads about half
+    of them.  A configuration the kernel cannot build raises
+    ``ValueError``.
+    """
+    cfg = _merged(config)
+    validate_config(cfg, Sq, Sk, D)
+    kv_rows = sum(kv_end(q0, cfg, Sq, Sk, causal)
+                  for q0 in range(0, Sq, cfg["BLOCK_Q"]))
+    nbytes = elt_bytes * (2 * Sq * D + 2 * kv_rows * D)
+    return KernelCost(flops=attention_flops(Sq, Sk, D, causal),
+                      bytes=nbytes)

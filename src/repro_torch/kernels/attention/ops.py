@@ -25,7 +25,8 @@ from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
 from .flash import (analytical_time, block_threads, make_flash_attention,
-                    register_estimate, smem_footprint, validate_config)
+                    register_estimate, smem_footprint, traffic,
+                    validate_config)
 from .ref import attention_reference
 
 KERNEL_NAME = "flash_attention"
@@ -137,6 +138,10 @@ def _make_args(shape: Shape, rng: np.random.Generator):
     analytical_model=lambda s, cfg, prof: analytical_time(
         cfg, prof, s["Sq"], s["Sk"], s["D"], causal=s.get("causal", True)),
     smem_footprint=lambda s, cfg: smem_footprint(cfg, s["D"]),
+    block_threads=lambda s, cfg: block_threads(cfg, s["D"]),
+    register_estimate=lambda s, cfg: register_estimate(cfg, s["D"]),
+    cost=lambda s, cfg: traffic(cfg, s["Sq"], s["Sk"], s["D"],
+                                causal=s.get("causal", True)),
     reference=lambda s: (lambda q, k, v: attention_reference(
         q, k, v, causal=s.get("causal", True))),
     default_shapes=(_shape(4096, 4096, 128, causal=True),),

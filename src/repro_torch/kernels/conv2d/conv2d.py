@@ -61,6 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...core.cost import KernelCost
 from ...core.profiles import DeviceProfile
 from .. import build
 from .ref import conv2d_reference, conv_bytes, conv_flops
@@ -398,3 +399,41 @@ def analytical_time(config: Config, profile: DeviceProfile,
     waves = math.ceil(blocks / (profile.sm_count * per_sm))
     return (max(compute_t, memory_t * overlap) + waves * WAVE_OVERHEAD_S
             + profile.launch_overhead)
+
+
+def _halo_extent(n: int, block: int, before: int, after: int) -> int:
+    """Image rows (or columns) all blocks along one axis read: each block
+    of ``block`` reads ``before`` more ahead and ``after`` more behind,
+    clipped to the image (the kernel zero-fills outside it, reading
+    nothing)."""
+    return sum(min(n, b + block + after) - max(0, b - before)
+               for b in range(0, n, block))
+
+
+def traffic(config: Config, H: int, W: int, Fh: int, Fw: int,
+            elt_bytes: int = 4) -> KernelCost:
+    """The declared cost of one call (:mod:`repro_torch.core.cost`).
+
+    FLOPs are the paper's footnote 2, (1 + 2*Fh*Fw)*H*W.  Bytes follow the
+    block geometry: 'materialize' reads each block's halo tile once
+    (BLOCK_H + Fh - 1 rows of BLOCK_W + Fw - 1 columns, clipped to the
+    image) and the filter once a block, and writes the output once.
+    'xla' pads the image into a new tensor and convolves that: the image
+    read and the padded copy written, then the copy and the filter read
+    and the output written.  A configuration the kernel cannot build
+    raises ``ValueError``.
+    """
+    cfg = _merged(config)
+    validate_config(cfg, H, W, Fh, Fw)
+    flops = conv_flops(H, W, Fh, Fw)
+    taps = Fh * Fw
+    if cfg["HALO_MODE"] == "xla":
+        padded = (H + Fh - 1) * (W + Fw - 1)
+        nbytes = elt_bytes * (2 * H * W + 2 * padded + taps)
+        return KernelCost(flops=flops, bytes=nbytes)
+    bh, bw = cfg["BLOCK_H"], cfg["BLOCK_W"]
+    halo = (_halo_extent(H, bh, Fh // 2, (Fh - 1) // 2)
+            * _halo_extent(W, bw, Fw // 2, (Fw - 1) // 2))
+    blocks = -(-H // bh) * -(-W // bw)
+    nbytes = elt_bytes * (halo + blocks * taps + H * W)
+    return KernelCost(flops=flops, bytes=nbytes)

@@ -20,7 +20,7 @@ from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
 from .conv2d import (analytical_time, block_threads, make_conv2d,
-                     smem_footprint)
+                     micro_tile, register_estimate, smem_footprint, traffic)
 from .ref import conv2d_reference
 
 KERNEL_NAME = "conv2d"
@@ -105,6 +105,14 @@ def _make_args(shape: Shape, rng: np.random.Generator):
     return img, flt
 
 
+def _registers(cfg: Config, Fh: int, Fw: int) -> int:
+    """Registers a thread of ``cfg`` needs at the build's register tile
+    (0 for 'xla', which launches no kernel of ours)."""
+    if cfg.get("HALO_MODE", "materialize") == "xla":
+        return 0
+    return register_estimate(cfg, Fw, micro_tile(cfg, Fh, Fw)[1])
+
+
 @tunable(
     name=KERNEL_NAME,
     space=_space,
@@ -114,6 +122,9 @@ def _make_args(shape: Shape, rng: np.random.Generator):
     analytical_model=lambda s, cfg, prof: analytical_time(
         cfg, prof, s["H"], s["W"], s["Fh"], s["Fw"]),
     smem_footprint=lambda s, cfg: smem_footprint(cfg, s["Fh"], s["Fw"]),
+    block_threads=lambda s, cfg: block_threads(cfg),
+    register_estimate=lambda s, cfg: _registers(cfg, s["Fh"], s["Fw"]),
+    cost=lambda s, cfg: traffic(cfg, s["H"], s["W"], s["Fh"], s["Fw"]),
     reference=lambda s: conv2d_reference,
     default_shapes=(_shape(4096, 4096, 3, 3),),
     # paper V-B: budget 107 = 1/32 of the 3424-config EXTENDED space, so

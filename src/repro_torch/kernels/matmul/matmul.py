@@ -50,6 +50,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ...core.cost import KernelCost
 from ...core.profiles import DeviceProfile
 from .. import build
 
@@ -310,3 +311,22 @@ def analytical_time(config: Config, profile: DeviceProfile,
 
 def flops(M: int, N: int, K: int) -> float:
     return 2.0 * M * N * K
+
+
+def traffic(config: Config, M: int, N: int, K: int,
+            elt_bytes: int = 4) -> KernelCost:
+    """The declared cost of one launch (:mod:`repro_torch.core.cost`).
+
+    FLOPs are the product's 2*M*N*K.  Bytes follow the block geometry:
+    each of the M/BLOCK_M * N/BLOCK_N blocks reads its BLOCK_M rows of A
+    and BLOCK_N columns of B over all of K, so A is read N/BLOCK_N times
+    and B M/BLOCK_M times; C is written once.  ACC_IN_OUTPUT does not add
+    a read of C: the kernel sums in registers for both TPU bodies, so the
+    in-place variant moves the same bytes.  A configuration the kernel
+    cannot build raises ``ValueError``.
+    """
+    cfg = _merged(config)
+    validate_config(cfg, M, N, K)
+    bm, bn = cfg["BLOCK_M"], cfg["BLOCK_N"]
+    nbytes = elt_bytes * (M * K * (N // bn) + K * N * (M // bm) + M * N)
+    return KernelCost(flops=flops(M, N, K), bytes=nbytes)

@@ -24,8 +24,8 @@ from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
 from . import ref
-from .matmul import (analytical_time, make_matmul, micro_tile,
-                     smem_footprint)
+from .matmul import (DTYPES, analytical_time, make_matmul, micro_tile,
+                     smem_footprint, traffic)
 
 KERNEL_NAME = "gemm"
 
@@ -156,6 +156,10 @@ def _make_args(shape: Shape, rng: np.random.Generator):
     analytical_model=lambda s, cfg, prof: analytical_time(
         cfg, prof, s["M"], s["N"], s["K"]),
     smem_footprint=lambda s, cfg: smem_footprint(cfg),
+    block_threads=lambda s, cfg: micro_tile(cfg)[2],
+    cost=lambda s, cfg: traffic(
+        cfg, s["M"], s["N"], s["K"],
+        DTYPES[s.get("dtype", "float32")].itemsize),
     reference=lambda s: (lambda a, b: ref.gemm_reference(a, b)),
     default_shapes=(_shape(2048, 2048, 2048),),
     defaults={"strategy": "annealing", "budget": 100},

@@ -111,9 +111,18 @@ def tune_kernel(kernel: "TunableKernel | str", shape: Shape, *,
     recorded under an objective-scoped cache key, and warm-start seeds
     only transfer from same-objective entries.
 
-    ``predictor`` and ``analyze`` must stay off: the layers behind them
-    are not ported yet, and asking for either raises
-    ``NotImplementedError`` (see :meth:`Tuner.tune`).
+    ``predictor`` ranks the search predictor-first (and can prune
+    predicted-infeasible configs before they are built): anything
+    :func:`repro_torch.core.predict.resolve_predictor` accepts — None (=
+    the ``REPRO_PREDICTOR`` env default, normally off), a kind string
+    (``"heuristic"|"costmodel"|"transfer"|"learned"``), a
+    ``{"kind", "payload"}`` dict, or a ready instance.
+
+    ``analyze`` runs the :mod:`repro_torch.analyze` pre-search pass
+    (space audit stats on ``outcome.analysis`` + proven-infeasible
+    pruning in the engine, ``EngineStats.proven_pruned``); None defers to
+    the ``REPRO_ANALYZE`` env knob (default off — analyzer-off searches
+    stay trial-identical to earlier releases).
     """
     k = resolve(kernel)
     shape = dict(shape)

@@ -113,24 +113,41 @@ def test_gemm_defaults_to_the_analytical_evaluator_as_in_jax():
     assert t.evaluator.profile is H100_SXM
 
 
-def test_unported_layers_raise_instead_of_being_skipped(tmp_path,
-                                                        monkeypatch):
+def test_predictor_and_analyzer_calls_tune_as_in_jax(tmp_path, monkeypatch):
+    """The calls that raised before the predictor and the analyzer were
+    ported now tune, and on a kernel declared in both packages they give
+    the JAX package's trials."""
+    from repro.tune import tune_kernel as ref_tune
+    monkeypatch.delenv("REPRO_PREDICTOR", raising=False)
+    monkeypatch.delenv("REPRO_ANALYZE", raising=False)
     kw = dict(strategy="random", budget=2, profile=H100_SXM,
               cache=TuningCache(str(tmp_path / "c.json")))
-    with pytest.raises(NotImplementedError, match="predict"):
-        tune_kernel(GEMM, SHAPE, predictor="learned", **kw)
-    with pytest.raises(NotImplementedError, match="analy"):
-        tune_kernel(GEMM, SHAPE, analyze=True, **kw)
+    learned = tune_kernel(GEMM, SHAPE, predictor="learned", **kw)
+    assert learned.predictor == "learned:gemm"
+    analyzed = tune_kernel(GEMM, SHAPE, analyze=True, **kw)
+    assert analyzed.analysis["proven_checker"] is True
     monkeypatch.setenv("REPRO_ANALYZE", "1")
-    with pytest.raises(NotImplementedError, match="analy"):
-        tune_kernel(GEMM, SHAPE, **kw)
+    assert tune_kernel(GEMM, SHAPE, **kw).analysis is not None
     monkeypatch.delenv("REPRO_ANALYZE")
     monkeypatch.setenv("REPRO_PREDICTOR", "heuristic")
-    with pytest.raises(NotImplementedError, match="predict"):
-        lookup_resolved(GEMM, SHAPE, profile=H100_SXM, policy="transfer",
-                        cache=TuningCache(str(tmp_path / "c.json")))
-    with pytest.raises(NotImplementedError):
-        port_core.EngineConfig(predictor=object())
+    res = lookup_resolved(GEMM, {"M": 512, "N": 256, "K": 256},
+                          profile=H100_SXM, policy="transfer",
+                          cache=TuningCache(str(tmp_path / "empty.json")))
+    assert res.provenance == "predicted" and res.predictor == "heuristic:gemm"
     monkeypatch.delenv("REPRO_PREDICTOR")
-    out = tune_kernel(GEMM, SHAPE, **kw)        # both off: a plain search
-    assert out.best_config is not None
+    assert port_core.EngineConfig(predictor=object()).predict_prune is False
+
+    ref_profile = dataclasses.replace(ref_core.TPU_V5E, name="h100_sxm")
+    ref_k, port_k = _declare(ref_core), _declare(port_core)
+    for extra in ({"predictor": "heuristic"}, {"predictor": "costmodel"},
+                  {"analyze": True}):
+        args = dict(strategy="annealing", budget=12, seed=0, record=False,
+                    warm_start=False, **extra)
+        r = ref_tune(ref_k, {"M": 1024}, profile=ref_profile,
+                     cache=ref_core.TuningCache(str(tmp_path / "r.json")),
+                     **args)
+        p = tune_kernel(port_k, {"M": 1024}, profile=H100_SXM,
+                        cache=TuningCache(str(tmp_path / "p.json")), **args)
+        assert [(t.config, t.time) for t in p.result.trials] == \
+            [(t.config, t.time) for t in r.result.trials]
+        assert (p.predictor, p.analysis) == (r.predictor, r.analysis)
