@@ -24,7 +24,9 @@ each printing its own lines:
      registers and spills of each conv build
   7. conv sweep: every case of the JAX package's conv2d tests, plus even
      filters, at its shape and at 4096^2, against conv2d_plain and the
-     oracle (tolerance 1e-4, the JAX tests')
+     oracle (tolerance 1e-4, the JAX tests'); then conv-bf16: every case
+     again with bfloat16 operands (the IN_BF16 builds), against
+     conv2d_plain and the float32 oracle of the same inputs (3e-2)
   8. flash sweep: every case of the JAX package's attention tests, plus
      Sq > Sk causal (rows that see no key must return the mean of v) and
      bf16 inputs, at its shape and at the 4096 twin (D = 128), against
@@ -36,6 +38,8 @@ each printing its own lines:
  10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
      causal (budget 24), lookup "exact", flash_attention(config=None) on
      (2, 8, 4096, 128) float32: one launch for all 16 heads; then
+     wallclock-gap: each of the three search winners' sample in its search
+     against its back-to-back time (limit WALLCLOCK_GAP);
      analyze: the static analyzer's lint over the registry at the card's
      runtime profile (no error), no config the three searches measured
      proven infeasible, two GEMM builds the proof rejects for shared memory
@@ -51,9 +55,21 @@ each printing its own lines:
      at (4096, 4096, 1024) beside one without it, each winner run through
      lookup -> matmul(), and a lookup at (1024, 4096, 4096) the predictor
      answers ("predicted"), run and timed beside torch.matmul; then
-     build_space: every distinct conv build of the extended space at 3x3,
-     16 nvcc at a time, with ptxas's registers and spills (none may spill;
-     after the searches, so their nvcc time stays their own)
+     dtune: tune_kernel_distributed over the first 32 points of the
+     288-point compact GEMM space at 2048^3, strided, wall-clock, process
+     (spawn) driver: 1 worker with budget 32, then 4 workers with budget 8
+     each (the same 32 configs), each run's libraries deleted first so
+     both build cold; wall and nvcc seconds, libraries built (none twice),
+     the two winners' back-to-back times (within 5 %); then islands mode,
+     4 workers of budget 8 on the thread driver, no library built twice;
+     online: a BackgroundTuner (wall-clock, annealing, budget 8) retunes a
+     GEMM shape no phase tunes from its heuristic resolution while the
+     main thread keeps calling matmul() with the ConfigSlot's snapshot,
+     every result held to the oracle before and after the swap; then
+     build_space: every fourth distinct conv build of the extended space
+     at 3x3 (93 of its 372), 16 nvcc at a time, with ptxas's
+     registers and spills (none may spill; after the searches, so their
+     nvcc time stays their own)
  11. the CUDA kernels one float32 F.scaled_dot_product_attention call
      launches (one torch.profiler trace): the flash yardstick's route
  12. conv and flash times (CUDA events, the versions taking turns): each
@@ -68,9 +84,13 @@ each printing its own lines:
  14. one JSON line listing every ported kernel
 
 Each main path zeroes its kernels' launch counters just before it and
-reads them just after.  The searches' budgets (GEMM 32, conv 48, flash
-24) are cut from the declarations' defaults for the time limit: a search
-is bound by nvcc, about 3.6 s per configuration.
+reads them just after (the dtune workers of the process driver count in
+their own processes and report what they launched, and each of them must
+have launched the GEMM; the islands and online paths run in this one).  The
+searches' budgets (GEMM 32, conv 48, flash 24) are cut from the
+declarations' defaults for the time limit: a search is bound by nvcc,
+about 3.6 s per configuration.  The dtune workers are spawned, so this
+script imports without side effects: its work is under __main__.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last is {"ok": true, "device": {...}}.  Any failure raises
@@ -83,6 +103,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import math
 import os
 import re
 import shutil
@@ -106,17 +127,24 @@ from repro_torch.analyze import (analyze_registry,  # noqa: E402
 from repro_torch.core import (H100_SXM, ArtifactStore,  # noqa: E402
                               CostModelEvaluator, LearnedPredictor, Tuner,
                               TuningCache, WallClockEvaluator, default_cache,
-                              device_profile, lookup_resolved)
+                              device_profile, lookup_resolved, make_strategy,
+                              split_key)
+from repro_torch.dtune import shard_space  # noqa: E402
 from repro_torch.kernels import attention as fa  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import conv2d as cv  # noqa: E402
+from repro_torch.kernels import launch_counts  # noqa: E402
 # the kernel's module (the package's ``conv2d`` is the op)
 cv_kernel = importlib.import_module("repro_torch.kernels.conv2d.conv2d")
 from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E402
                                         gemm_reference, heuristic_config,
                                         lookup_config, make_matmul, matmul,
                                         micro_tile, smem_footprint)
-from repro_torch.tune import tune_kernel  # noqa: E402
+from repro_torch.serve import (BackgroundTuner, ConfigSlot,  # noqa: E402
+                               JobStatus, OnlineTuneConfig,
+                               submit_for_resolutions)
+from repro_torch.tune import tune_kernel, tune_kernel_distributed  # noqa: E402
+mm_kernel = importlib.import_module("repro_torch.kernels.matmul.matmul")
 
 SOURCE = "src/repro_torch/kernels/matmul/csrc/gemm.cu"
 #: each ported kernel's CUDA source
@@ -596,17 +624,21 @@ def phase_build_new(objs, device):
     return time.perf_counter() - t0
 
 
-def phase_build_space(device, workers=16):
-    """Build every distinct conv2d library of the extended space at 3x3 and
-    read ptxas's registers and spills: the register tile is capped so that
-    none spills."""
+def phase_build_space(device, workers=16, stride=4):
+    """Build every ``stride``-th distinct conv2d library of the extended
+    space at 3x3, in enumeration order, and read ptxas's registers and
+    spills: the register tile is capped so that none spills.  (Every one of
+    the 372 was built spill-free before; the stride keeps the script in its
+    time limit.)"""
     shape = {"H": 4096, "W": 4096, "Fh": 3, "Fw": 3}
-    builds = {}
+    distinct = {}
     for c in cv.CONV2D.make_space(shape, extended=True).enumerate():
         if c["HALO_MODE"] == "materialize":
             fn = cv.make_conv2d(4096, 4096, 3, 3, c)
-            builds.setdefault(fn.defines(), fn)
-    record = {"builds": len(builds)}
+            distinct.setdefault(fn.defines(), fn)
+    builds = dict(list(distinct.items())[::stride])
+    record = {"distinct": len(distinct), "stride": stride,
+              "builds": len(builds)}
     if device.type == "cuda":
         t0 = time.perf_counter()
         with ThreadPoolExecutor(workers) as pool:
@@ -632,8 +664,8 @@ def phase_build_space(device, workers=16):
     return record
 
 
-def _check_row(row, kind):
-    print(f"[{kind}-sweep] " + json.dumps(row))
+def _check_row(row, kind, tag=None):
+    print(f"[{tag or kind + '-sweep'}] " + json.dumps(row))
     if not (row["finite"] and row["share_plain"] <= 1.0
             and row["share_oracle"] <= 1.0 and row.get("mean_v_ok", True)):
         raise AssertionError(f"{kind} {row['case']} disagrees: {row}")
@@ -864,7 +896,7 @@ def zero_counts():
 
 def read_counts():
     """Every kernel's launch count (just after a path)."""
-    return {**LAUNCHES, **cv.LAUNCHES, **fa.LAUNCHES}
+    return launch_counts()
 
 
 def _check_launched(counts, names, what):
@@ -1143,6 +1175,295 @@ def phase_predict(main_rec, device, main_shape, new_shape, lookup_shape,
     return record
 
 
+# ---------------------------------------------------------------------------
+# conv2d in bfloat16, the searches' samples, the distributed tuning plane and
+# online retuning
+# ---------------------------------------------------------------------------
+
+#: most a search's sample of its winner may differ from the winner's
+#: back-to-back time (PERF.md section 2, set before the first run measured it)
+WALLCLOCK_GAP = 0.10
+#: most the 1-worker and 4-worker winners' back-to-back times may differ
+DTUNE_TIE = 0.05
+
+
+def phase_conv_bf16(cases, fns, big, device):
+    """Every conv sweep case with bfloat16 operands against conv2d_plain
+    and the float32 oracle of the same (rounded) inputs, at 3e-2."""
+    rows = []
+    for name, cfg, hw, filt, weight in cases:
+        for size in (hw, big):
+            fn = fns[(name, size)]
+            img, f = (x.bfloat16() for x in conv_inputs(*size, *filt, device))
+            out = fn(img, f)
+            sync(device)
+            plain = cv.conv2d_plain(img, f, fn.config, weight)
+            oracle = cv.conv2d_reference(img.float(), f.float(), weight)
+            row = {"case": name, "config": fn.config, "shape": list(size),
+                   "filter": list(filt), "weight": weight,
+                   "route": fn.route, "dtype": str(out.dtype),
+                   "finite": bool(torch.isfinite(out.float()).all()),
+                   "err_plain": max_err(out, plain),
+                   "err_oracle": max_err(out, oracle),
+                   "share_plain": tol_share(out, plain, BF16_TOL, BF16_TOL),
+                   "share_oracle": tol_share(out, oracle, BF16_TOL,
+                                             BF16_TOL),
+                   "tol": [BF16_TOL, BF16_TOL]}
+            if out.dtype != torch.bfloat16:
+                raise AssertionError(f"conv2d returned {out.dtype}: {row}")
+            rows.append(row)
+            _check_row(row, "conv", tag="conv-bf16")
+    return rows
+
+
+def phase_wallclock_gap(main_path, device):
+    """Each search winner's sample in its search (the median of the
+    evaluator's samples) against its back-to-back time on the same inputs
+    (the evaluator's, seed 0): how far the search reads off the card."""
+    rows = []
+    for kernel, rec, shape in main_path:
+        fn = kernel.build(shape, rec["winner"])
+        args = tuple(torch.as_tensor(x).to(device) for x in
+                     kernel.make_args(shape, np.random.default_rng(0)))
+        runs = time_in_turns({"winner": lambda: fn(*args)}, device)["winner"]
+        b2b = float(np.median(runs))
+        rows.append({"kernel": kernel.name, "winner": rec["winner"],
+                     "search_ms": rec["winner_ms"], "back_to_back_ms": b2b,
+                     "back_to_back_runs": runs,
+                     "gap": rec["winner_ms"] / b2b - 1.0})
+    record = {"limit": WALLCLOCK_GAP, "rows": rows}
+    print("[wallclock-gap] " + json.dumps(record))
+    if device.type == "cuda":
+        over = [r for r in rows if abs(r["gap"]) > WALLCLOCK_GAP]
+        if over:
+            raise AssertionError(f"search samples off the card: {over}")
+    return record
+
+
+def _strided_configs(space, shard):
+    """The configs a strided shard's full search visits, in order."""
+    strat = make_strategy(shard.strategy, **shard.strategy_kwargs)
+    res = strat.run(space, lambda cfg: 1.0, budget=shard.budget)
+    return [dict(t.config) for t in res.trials]
+
+
+def _gemm_library(M, N, K, cfg):
+    """The library build.build makes for a float32 GEMM config."""
+    fn = make_matmul(M, N, K, cfg)
+    return build.library_path(mm_kernel.BUILD_NAME, build.digest(
+        mm_kernel.SOURCE, mm_kernel._defines(fn.config, fn.dtype)))
+
+
+def _drop_libraries(libs):
+    """Delete libraries (and their logs and locks) so they build cold."""
+    dropped = 0
+    for lib in set(libs):
+        for path in (lib, lib[:-3] + ".log", lib[:-3] + ".lock"):
+            if os.path.exists(path):
+                os.unlink(path)
+                dropped += path == lib
+    return dropped
+
+
+def _builds_since(n_before):
+    """(nvcc seconds, libraries built, libraries built more than once) of
+    the build log's lines after the first ``n_before``."""
+    lines = build.read_build_log()[n_before:]
+    names = [r["library"] for r in lines]
+    twice = sorted({n for n in names if names.count(n) > 1})
+    return sum(r["s"] for r in lines), len(names), twice, len(
+        {r["pid"] for r in lines})
+
+
+def _dtune_run(shape, n, mode, driver, budget, evaluator, profile, cache,
+               device):
+    n_log = len(build.read_build_log())
+    t0 = time.perf_counter()
+    out = tune_kernel_distributed(
+        GEMM, shape, n_workers=n, mode=mode, driver=driver, budget=budget,
+        evaluator=evaluator, profile=profile, cache=cache,
+        device=None if device.type == "cuda" else "cpu",
+        engine={"workers": 1}, timeout_s=900)
+    wall = time.perf_counter() - t0
+    nvcc_s, built, twice, builders = _builds_since(n_log)
+    return out, {
+        "workers": n, "mode": mode, "driver": driver, "budget": budget,
+        "wall_s": wall, "nvcc_s": nvcc_s, "libraries_built": built,
+        "built_twice": twice, "building_processes": builders,
+        "evaluations": [w.evaluations for w in out.workers],
+        "status": [w.status for w in out.workers],
+        "failed_trials": [w.failures for w in out.workers],
+        "worker_compile_s": [(w.engine_stats or {}).get("compile_total_s")
+                             for w in out.workers],
+        "worker_launches": [w.launches for w in out.workers],
+        "winner": out.best_config, "winner_search_ms": out.best_time * 1e3}
+
+
+def phase_dtune(main_shape, device, tmp, n_configs=32, fleet=4):
+    """The distributed tuning plane on the card: a strided full search over
+    the first ``n_configs`` points of the compact GEMM space, cold, with 1
+    worker and with ``fleet`` workers (process driver), then an islands
+    search on the thread driver."""
+    M, N, K = main_shape
+    shape = {"M": M, "N": N, "K": K}
+    profile = device_profile(device)
+    space = GEMM.make_space(shape)
+    first = space.enumerate(n_configs)
+    evaluator = {"name": "wallclock", "atol": MAIN_TOL, "rtol": MAIN_TOL}
+    record = {"space": space.cardinality(), "configs": n_configs, "runs": {}}
+    outs = {}
+    for n in (1, fleet):
+        budget = n_configs // n
+        shards = shard_space(space, n, "strided", budget=budget)
+        picked = [c for sh in shards for c in _strided_configs(space, sh)]
+        if sorted(map(space.config_key, picked)) != sorted(
+                map(space.config_key, first)):
+            raise AssertionError(f"{n} strided shards do not cover the "
+                                 f"first {n_configs} configs")
+        dropped = _drop_libraries(_gemm_library(M, N, K, c) for c in picked)
+        outs[n], rec = _dtune_run(
+            shape, n, "strided", "process", budget, evaluator, profile,
+            TuningCache(os.path.join(tmp, f"dtune-{n}.json")), device)
+        rec["libraries_dropped"] = dropped
+        record["runs"][f"{n}w"] = rec
+        print(f"[dtune] {n} worker(s): " + json.dumps(rec))
+    # the two winners back to back, in turns
+    a, b = inputs(main_shape, "float32", False, device, seed=9)
+    fns = {f"{n}w": make_matmul(M, N, K, outs[n].best_config)
+           for n in (1, fleet)}
+    runs = time_in_turns({k: (lambda fn=fn: fn(a, b))
+                          for k, fn in fns.items()}, device)
+    winner_ms = {k: float(np.median(r)) for k, r in runs.items()}
+    record["winner_ms"] = winner_ms
+    record["winner_ratio"] = winner_ms[f"{fleet}w"] / winner_ms["1w"]
+    # islands: the whole space, configs repeat across workers; warm
+    # libraries, warm start from the fleet's cache
+    zero_counts()
+    _, rec = _dtune_run(shape, fleet, "islands", "thread", n_configs // fleet,
+                        evaluator, profile,
+                        TuningCache(os.path.join(tmp, f"dtune-{fleet}.json")),
+                        device)
+    rec["launches"] = read_counts()
+    record["runs"]["islands"] = rec
+    print(f"[dtune] islands: " + json.dumps(rec))
+    print("[dtune] " + json.dumps({k: v for k, v in record.items()
+                                   if k != "runs"}))
+    for key, r in record["runs"].items():
+        if r["built_twice"]:
+            raise AssertionError(f"[dtune] {key}: libraries built twice: "
+                                 f"{r['built_twice']}")
+        if key != "islands" and (
+                set(r["status"]) != {"ok"} or any(r["failed_trials"])
+                or r["evaluations"] != [r["budget"]] * r["workers"]):
+            raise AssertionError(f"[dtune] {key} did not measure the "
+                                 f"{n_configs} configs: {r}")
+    if set(record["runs"]["islands"]["status"]) - {"ok"}:
+        raise AssertionError(f"[dtune] an island failed: {record}")
+    if device.type == "cuda":
+        # the process runs' GEMM launches happen in the spawned workers:
+        # each worker counts its own
+        for key in ("1w", f"{fleet}w"):
+            for i, counts in enumerate(record["runs"][key]["worker_launches"]):
+                _check_launched(counts, ["gemm_scratch", "gemm_inplace"],
+                                f"[dtune] {key} worker {i}")
+        _check_launched(record["runs"]["islands"]["launches"],
+                        ["gemm_scratch", "gemm_inplace"], "[dtune] islands")
+        if abs(record["winner_ratio"] - 1.0) > DTUNE_TIE:
+            raise AssertionError(f"[dtune] the winners differ by more than "
+                                 f"{DTUNE_TIE:.0%}: {winner_ms}")
+    return record
+
+
+def phase_online(shape3, device, tmp, budget=8, timeout_s=600.0):
+    """A BackgroundTuner retunes a GEMM shape no other phase tunes while
+    the main thread serves matmul() calls from the ConfigSlot."""
+    M, N, K = shape3
+    shape = {"M": M, "N": N, "K": K, "dtype": "float32"}
+    profile = device_profile(device)
+    cache = TuningCache(os.path.join(tmp, "online.json"))
+    res = lookup_resolved(GEMM, shape, profile=profile, cache=cache,
+                          policy="transfer")
+    slot = ConfigSlot({GEMM.name: res.config})
+    key = GEMM.key_for(shape)
+
+    def on_change(cache_key, entry):
+        kernel, entry_key = split_key(cache_key)[:2]
+        if kernel == GEMM.name and entry_key == key:
+            slot.swap(GEMM.name, entry.config)
+
+    cache.subscribe(on_change)
+    dev = None if device.type == "cuda" else "cpu"
+    # warm-started: the served heuristic config is the search's first
+    # point, so a config swaps in only where one measured faster
+    tuner = BackgroundTuner(
+        cache=cache, profile=profile, config=OnlineTuneConfig(
+            strategy="annealing", budget=budget, device=dev,
+            evaluator_factory=lambda k, s, p: WallClockEvaluator(
+                atol=MAIN_TOL, rtol=MAIN_TOL, device=device)))
+    a, b = inputs(shape3, "float32", False, device, seed=8)
+    oracle = gemm_reference(a, b)
+    served = {0: 0}
+    worst = {0: 0.0}
+
+    def serve():
+        configs, gen = slot.read()
+        out = matmul(a, b, config=configs[GEMM.name])
+        sync(device)
+        served[gen] = served.get(gen, 0) + 1
+        worst[gen] = max(worst.get(gen, 0.0),
+                         tol_share(out, oracle, MAIN_TOL, MAIN_TOL))
+
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        job = submit_for_resolutions(tuner, {GEMM.name: res})[GEMM.name]
+        while (job.status in (JobStatus.PENDING, JobStatus.RUNNING)
+               and time.perf_counter() - t0 < timeout_s):
+            serve()
+        while_tuning = sum(served.values())
+        tuner.wait(timeout=timeout_s)
+        for _ in range(5):                       # after the swap
+            serve()
+    finally:
+        tuner.close()
+        cache.unsubscribe(on_change)
+    tune_s = time.perf_counter() - t0
+    launches = read_counts()
+    new, gen = slot.read()
+    fns = {"old": make_matmul(M, N, K, res.config),
+           "new": make_matmul(M, N, K, new[GEMM.name])}
+    runs = time_in_turns({k: (lambda fn=fn: fn(a, b))
+                          for k, fn in fns.items()}, device)
+    record = {
+        "shape": list(shape3), "provenance": res.provenance,
+        "old_config": res.config, "new_config": new[GEMM.name],
+        "generation": gen, "job_status": job.status.value,
+        "job_error": job.error, "job_evaluations": job.evaluations,
+        "job_best_ms": (job.best_time or math.nan) * 1e3,
+        "calls_while_tuning": while_tuning, "calls_by_generation": served,
+        "worst_share_by_generation": worst, "wall_s": tune_s,
+        "old_ms": float(np.median(runs["old"])),
+        "new_ms": float(np.median(runs["new"])), "runs": runs,
+        "launches": launches}
+    print("[online] " + json.dumps({k: v for k, v in record.items()
+                                    if k != "runs"}))
+    if res.provenance not in ("predicted", "heuristic"):
+        raise AssertionError(f"[online] the lookup gave {res}")
+    if job.status is not JobStatus.DONE:
+        raise AssertionError(f"[online] the retune failed: {record}")
+    if max(worst.values()) > 1.0:
+        raise AssertionError(f"[online] a served result disagrees: {record}")
+    # on the CPU the plain versions' times barely depend on the blocks, so
+    # the heuristic may win and the swap be a no-op there
+    if device.type == "cuda" and (gen != 1 or served.get(1, 0) == 0):
+        raise AssertionError(f"[online] the retune did not swap once, or "
+                             f"nothing ran after the swap: {record}")
+    if device.type == "cuda":
+        _check_launched(launches, ["gemm_scratch", "gemm_inplace"],
+                        "[online]")
+    return record
+
+
 def _bound(ops, nbytes):
     t_ops = ops / H100_SXM.peak_f32_flops
     t_bytes = nbytes / H100_SXM.hbm_bw
@@ -1318,6 +1639,7 @@ def main(argv=None):
         big_s, flash_main, flash_lead = 512, (256, 256, 64), (2, 2)
         conv_budget, flash_budget = 6, 4
         predict_shape, lookup_shape = (512, 512, 128), (128, 512, 512)
+        online_shape = (64, 512, 256)
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1331,6 +1653,8 @@ def main(argv=None):
         conv_budget, flash_budget = 48, 24
         # shapes no other phase tunes
         predict_shape, lookup_shape = (4096, 4096, 1024), (1024, 4096, 4096)
+        # M = 256: the heuristic's 128 x 128 tiles fill 64 of 132 SMs
+        online_shape = (256, 4096, 2048)
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "tuned_configs.json")
 
@@ -1346,6 +1670,9 @@ def main(argv=None):
     conv_fns = {(name, size): cv.make_conv2d(*size, *filt, cfg, weight)
                 for name, cfg, hw, filt, weight in ccases
                 for size in (hw, big)}
+    conv_bf16_fns = {key: cv.make_conv2d(fn.H, fn.W, fn.Fh, fn.Fw, fn.config,
+                                         fn.weight, dtype=torch.bfloat16)
+                     for key, fn in conv_fns.items()}
     flash_fns = {}
     for case in fcases:
         name, cfg, _, _, _, _, causal, dtype = case
@@ -1372,16 +1699,21 @@ def main(argv=None):
 
     for phase, run in [
             ("build_new", lambda: phase_build_new(
-                list(conv_fns.values()) + conv_heur + conv_large
-                + list(flash_fns.values()) + [flash_heur], device)),
+                list(conv_fns.values()) + list(conv_bf16_fns.values())
+                + conv_heur + conv_large + list(flash_fns.values())
+                + [flash_heur], device)),
             ("conv_sweep", lambda: phase_conv_sweep(ccases, conv_fns, big,
                                                     device)),
+            ("conv_bf16", lambda: phase_conv_bf16(ccases, conv_bf16_fns, big,
+                                                  device)),
             ("flash_sweep", lambda: phase_flash_sweep(fcases, flash_fns,
                                                       big_s, device)),
             ("conv_main", lambda: phase_conv_main(conv_main, conv_big, device,
                                                   conv_budget)),
             ("flash_main", lambda: phase_flash_main(flash_main, flash_lead,
                                                     device, flash_budget)),
+            ("wallclock_gap", lambda: phase_wallclock_gap(main_path(),
+                                                          device)),
             ("analyze", lambda: phase_analyze(main_path(), device, main_shape,
                                               flash_main)),
             ("costmodel", lambda: phase_costmodel(
@@ -1389,6 +1721,8 @@ def main(argv=None):
             ("predict", lambda: phase_predict(
                 main_rec, device, main_shape, predict_shape, lookup_shape,
                 16, tmp)),
+            ("dtune", lambda: phase_dtune(main_shape, device, tmp)),
+            ("online", lambda: phase_online(online_shape, device, tmp)),
             # after the searches, which build their own configurations
             ("build_space", lambda: phase_build_space(device))]:
         t0 = time.perf_counter()

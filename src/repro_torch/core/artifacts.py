@@ -313,11 +313,11 @@ class ArtifactStore:
         art = self.get(kind, fingerprint, profile)
         if art is not None:
             return art
-        from .cache import _FileLock       # the PR 6 lock discipline
+        from .cache import FileLock       # cache.py's lock discipline
         lock_path = self.path_for(kind, fingerprint, profile) + ".lock"
         try:
             os.makedirs(self.root, exist_ok=True)
-            lock = _FileLock(lock_path)
+            lock = FileLock(lock_path)
         except OSError as e:                # unwritable volume: degrade
             log.warning("artifacts: no lock at %s (%s); compiling "
                         "without the store", lock_path, e)

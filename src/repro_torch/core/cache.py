@@ -79,14 +79,17 @@ def _default_path() -> str:
     return env_str(_ENV_VAR, _DEFAULT_PATH)
 
 
-class _FileLock:
+class FileLock:
     """Advisory cross-process lock guarding read-modify-write of one file.
 
     ``fcntl.flock`` on a sibling ``<path>.lock`` file where available
     (POSIX); elsewhere an ``O_CREAT|O_EXCL`` spin lock with a staleness
-    timeout.  Only the merge-on-disk save path takes it, so two processes
+    timeout.  The merge-on-disk save path takes it, so two processes
     syncing the same ``tuned_configs.json`` serialize their
-    read-merge-replace cycles instead of interleaving them.
+    read-merge-replace cycles instead of interleaving them; the artifact
+    store, the kernel build (one ``nvcc`` per library across processes)
+    and the wall-clock evaluator (one measurement at a time on a card) take
+    it too.
     """
 
     def __init__(self, path: str, timeout_s: float = 30.0,
@@ -97,7 +100,7 @@ class _FileLock:
         self._fd: Optional[int] = None
         self._owns_file = False
 
-    def __enter__(self) -> "_FileLock":
+    def __enter__(self) -> "FileLock":
         if fcntl is not None:
             self._fd = os.open(self.path, os.O_CREAT | os.O_RDWR, 0o644)
             fcntl.flock(self._fd, fcntl.LOCK_EX)
@@ -412,7 +415,7 @@ class TuningCache:
             self._ensure_loaded()
             os.makedirs(os.path.dirname(self.path), exist_ok=True)
             if merge_on_disk:
-                with _FileLock(self.path + ".lock"):
+                with FileLock(self.path + ".lock"):
                     if os.path.exists(self.path):
                         changed = self._merge_locked(self._read_file())
                     self._write_locked()

@@ -27,8 +27,12 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import inspect
 import math
+import os
 import time
+import types
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -38,6 +42,8 @@ from . import verify
 from .cost import KernelCost, declared_cost
 from .artifacts import (PROVENANCE_NONE, ArtifactStore, CompiledArtifact,
                         spec_fingerprint)
+from .cache import FileLock
+from .paths import LOCK_DIR
 from .failures import (CompileError, EvaluationError, InfeasibleConfigError,
                        MeasureError, VerificationFailure)
 from .metrics import Metrics
@@ -74,6 +80,75 @@ class KernelSpec:
     reference: Optional[Callable] = None
     #: static metadata (shape key etc.) used by the results cache
     meta: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    #: functions and device source files (paths) that ``cost`` and
+    #: ``build`` are made of; with ``cost`` itself they key the cost
+    #: model's stored prices (:func:`source_digest`)
+    sources: Tuple[Any, ...] = ()
+
+
+#: this package's top-level name: source_digest follows its functions
+_TOP = __name__.split(".")[0]
+
+
+def source_digest(*objs: Any) -> str:
+    """sha256 of what a kernel's cost and build are made of.
+
+    A string is a path: its file's bytes.  A function contributes its
+    source (``inspect.getsource``; where there is none, its qualified name
+    and ``__code__.co_code``), then, depth first, every function it
+    reaches through its closure or by a global name in its code (nested
+    lambdas included), within this package and the function's own module.
+    So an edit to ``traffic()`` moves the digest of a declaration whose
+    ``cost`` lambda only calls it.  Anything else contributes its repr.
+    """
+    h = hashlib.sha256()
+    seen: set = set()
+
+    def visit(obj: Any, home: str) -> None:
+        if isinstance(obj, str):
+            h.update(b"file\0" + obj.encode() + b"\0")
+            try:
+                with open(obj, "rb") as f:
+                    h.update(f.read())
+            except OSError:
+                h.update(b"missing")
+            return
+        if not isinstance(obj, types.FunctionType):
+            h.update(repr(obj).encode())
+            return
+        if obj in seen:
+            return
+        seen.add(obj)
+        try:
+            h.update(inspect.getsource(obj).encode())
+        except (OSError, TypeError):
+            h.update(obj.__qualname__.encode() + obj.__code__.co_code)
+        reached = [c.cell_contents for c in (obj.__closure__ or ())
+                   if _cell_set(c)]
+        codes = [obj.__code__]
+        while codes:
+            code = codes.pop(0)
+            reached += [obj.__globals__[n] for n in code.co_names
+                        if n in obj.__globals__]
+            codes += [c for c in code.co_consts
+                      if isinstance(c, types.CodeType)]
+        for fn in reached:
+            if isinstance(fn, types.FunctionType) and (
+                    fn.__module__ == home
+                    or (fn.__module__ or "").startswith(_TOP + ".")):
+                visit(fn, home)
+
+    for obj in objs:
+        visit(obj, getattr(obj, "__module__", "") or "")
+    return h.hexdigest()[:24]
+
+
+def _cell_set(cell: Any) -> bool:
+    try:
+        cell.cell_contents
+    except ValueError:          # an empty cell
+        return False
+    return True
 
 
 @dataclasses.dataclass
@@ -136,6 +211,10 @@ def median_prune_loop(sample: Callable[[], float], repeats: int,
     return samples, False
 
 
+#: Evaluator.evaluate warns once per process
+_EVALUATE_DEPRECATION_EMITTED = False
+
+
 class Evaluator:
     """Interface: ``prepare`` -> :class:`CompiledArtifact` -> ``measure``.
 
@@ -170,7 +249,9 @@ class Evaluator:
     store.
 
     ``objective`` adapts an evaluator to a bare strategy's
-    ``Config -> float`` objective, outside the engine.
+    ``Config -> float`` objective, outside the engine.  ``evaluate`` — the
+    one-call compat shim — is deprecated: it warns once per process
+    (``DeprecationWarning``) and routes through the same typed path.
     """
 
     name = "base"
@@ -179,6 +260,18 @@ class Evaluator:
     #: the DeviceProfile this evaluator models/measures against, when it
     #: has one.  None means "no modeled device".
     profile: Optional[Any] = None
+
+    def evaluate(self, spec: KernelSpec, config: Config) -> Measurement:
+        """Deprecated one-call path; use ``prepare`` + ``measure``
+        (or ``objective``) instead."""
+        global _EVALUATE_DEPRECATION_EMITTED
+        if not _EVALUATE_DEPRECATION_EMITTED:
+            _EVALUATE_DEPRECATION_EMITTED = True
+            warnings.warn(
+                "Evaluator.evaluate(spec, config) is deprecated; use the "
+                "typed prepare()/measure() artifact path (or objective()) "
+                "instead", DeprecationWarning, stacklevel=2)
+        return self._evaluate(spec, config)
 
     def _evaluate(self, spec: KernelSpec, config: Config) -> Measurement:
         """measure(prepare(...)) with typed errors folded back into failed
@@ -238,9 +331,37 @@ class WallClockEvaluator(Evaluator):
     first launch, verifies it against the oracle, warms up and times,
     optionally aborting early once the running median exceeds the prune
     threshold.
+
+    **A sample on the card times the card, not the host.**  A kernel
+    launched from Python leaves the card idle while the host prepares the
+    launch, so one launch between two CUDA events reads high, most for
+    short kernels.  On CUDA each sample is one untimed launch, then k
+    back-to-back launches between one pair of events, and the window
+    divided by k: the untimed launch keeps the card busy while the host
+    enqueues the first timed one.  k is chosen once per measurement, after
+    the warm-up, from :attr:`PROBE_LAUNCHES` back-to-back launches timed
+    the same way, so that the window is at least :attr:`WINDOW_S` (1 ms),
+    and at most :attr:`MAX_LAUNCHES`.
+    ``repeats``, the median and ``prune_threshold_s`` keep their meaning:
+    samples, their median, and the running median that prunes.  On the
+    CPU a sample is one call on the host clock, as before.
+
+    **One measurement at a time on a card.**  On CUDA ``measure`` holds an
+    exclusive ``flock`` on ``build/locks/cuda<index>.lock`` (at the root of
+    the checkout) from its first launch to its last sample, so evaluators
+    in other threads or processes — a fleet of tuning workers, a
+    background retune beside a serving loop's own measurements — never
+    time each other's kernels.  ``prepare`` (the build) takes no such
+    lock: builds run in parallel.
     """
 
     name = "wallclock"
+    #: least time one CUDA sample's window of back-to-back launches spans
+    WINDOW_S = 1e-3
+    #: most launches one CUDA sample times
+    MAX_LAUNCHES = 256
+    #: back-to-back launches timed to choose k
+    PROBE_LAUNCHES = 4
 
     def __init__(self, repeats: int = 5, warmup: int = 1,
                  verify_outputs: bool = True, seed: int = 0,
@@ -299,11 +420,42 @@ class WallClockEvaluator(Evaluator):
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def lock_path(self) -> str:
+        """The file whose ``flock`` serializes measurements on this
+        evaluator's card."""
+        index = (self.device.index if self.device.index is not None
+                 else torch.cuda.current_device())
+        return os.path.join(LOCK_DIR, f"cuda{index}.lock")
+
     def measure(self, spec: KernelSpec, config: Config,
                 prepared=None,
                 prune_threshold_s: Optional[float] = None) -> Measurement:
         if prepared is None:
             prepared = self.prepare(spec, config)
+        if self.device.type != "cuda":
+            return self._measure(spec, prepared, prune_threshold_s)
+        os.makedirs(LOCK_DIR, exist_ok=True)
+        with FileLock(self.lock_path()):
+            return self._measure(spec, prepared, prune_threshold_s)
+
+    def _launches_per_sample(self, fn: Callable, args: Tuple) -> int:
+        """k for this config: a probe of :attr:`PROBE_LAUNCHES` back-to-back
+        launches after an untimed one (so the host's launch gap stays out
+        of it, as in a sample), k launches spanning at least WINDOW_S."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        fn(*args)
+        start.record()
+        for _ in range(self.PROBE_LAUNCHES):
+            fn(*args)
+        end.record()
+        end.synchronize()
+        one_s = max(start.elapsed_time(end) / 1e3 / self.PROBE_LAUNCHES,
+                    1e-9)
+        return max(1, min(self.MAX_LAUNCHES, math.ceil(self.WINDOW_S / one_s)))
+
+    def _measure(self, spec: KernelSpec, prepared: CompiledArtifact,
+                 prune_threshold_s: Optional[float]) -> Measurement:
         fn, compile_s = prepared.payload.fn, prepared.payload.compile_s
         args, ref_out = self._args_and_reference(spec)
         try:
@@ -323,20 +475,24 @@ class WallClockEvaluator(Evaluator):
                     f"verification failed: {e}") from e
         del out
 
+        launches = 1
         try:
             for _ in range(max(0, self.warmup - 1)):
                 fn(*args)
             self._sync()
             if self.device.type == "cuda":
+                launches = self._launches_per_sample(fn, args)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
 
                 def _sample() -> float:
+                    fn(*args)               # busy while the next enqueues
                     start.record()
-                    fn(*args)
+                    for _ in range(launches):
+                        fn(*args)
                     end.record()
                     end.synchronize()
-                    return start.elapsed_time(end) / 1e3
+                    return start.elapsed_time(end) / 1e3 / launches
             else:
                 def _sample() -> float:
                     t0 = time.perf_counter()
@@ -352,6 +508,8 @@ class WallClockEvaluator(Evaluator):
         detail = {"min_s": float(np.min(samples)),
                   "max_s": float(np.max(samples)),
                   "samples": float(len(samples))}
+        if self.device.type == "cuda":
+            detail["launches_per_sample"] = float(launches)
         if pruned:
             detail["pruned"] = True
         return Measurement(time_s=t, ok=True, verified=verified,
@@ -374,7 +532,10 @@ class CostModelEvaluator(Evaluator):
     ``artifact_store`` is attached, persists the payload under kind
     ``costmodel`` keyed by :func:`spec_fingerprint` and ``profile.name``,
     so a second search answers from the store (``provenance="store"``,
-    ``compile_s=0``).  A configuration its declaration refuses raises
+    ``compile_s=0``).  The fingerprint folds in :func:`source_digest` of
+    the spec's ``cost`` and ``sources`` (the declaration's cost function,
+    what it calls, and the kernel's ``.cu``), so an edit to either is
+    priced anew, as a changed lowering is in the JAX package.  A configuration its declaration refuses raises
     :class:`CompileError`, as a failed lowering does in the JAX package,
     and is never persisted.  ``measure`` prices the payload; a store-hit
     payload prices identically to a fresh one.
@@ -384,12 +545,21 @@ class CostModelEvaluator(Evaluator):
 
     def __init__(self, profile: Optional[DeviceProfile] = None):
         self.profile = resolve_profile(profile)
+        #: (cost, *sources) -> source_digest, computed once per spec
+        self._digests: Dict[Tuple[Any, ...], str] = {}
+
+    def _source_digest(self, spec: KernelSpec) -> str:
+        key = (spec.cost,) + tuple(spec.sources)
+        if key not in self._digests:
+            self._digests[key] = source_digest(*key)
+        return self._digests[key]
 
     def prepare(self, spec: KernelSpec, config: Config) -> CompiledArtifact:
         """Evaluate the declared cost, or fetch it from the store."""
         if spec.cost is None:
             raise CompileError("CostModelEvaluator requires spec.cost")
-        fp = spec_fingerprint(spec.name, spec.meta, config)
+        fp = spec_fingerprint(spec.name, spec.meta, config,
+                              extra=f"src={self._source_digest(spec)}")
 
         def _compute() -> CompiledArtifact:
             t0 = time.perf_counter()
@@ -427,6 +597,10 @@ class CostModelEvaluator(Evaluator):
                     "compute_t": compute_t, "memory_t": memory_t,
                     "collective_t": 0.0},
             metrics=Metrics(samples=(t,), compile_s=compile_s, work=flops))
+
+    def analyze(self, spec: KernelSpec, config: Config) -> Measurement:
+        """Price one config, a failure folded into a failed Measurement."""
+        return self._evaluate(spec, config)
 
 
 class AnalyticalEvaluator(Evaluator):

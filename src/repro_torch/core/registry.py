@@ -142,6 +142,9 @@ class TunableKernel:
     #: declared cost: (shape, config) -> :class:`~repro_torch.core.cost.
     #: KernelCost`, the FLOPs and bytes the cost-model evaluator prices
     cost: Optional[Callable[[Shape, Config], Any]] = None
+    #: device source files the build compiles (``.cu``); their bytes key
+    #: the cost model's stored prices, so an edited kernel is priced anew
+    sources: Tuple[str, ...] = ()
     #: shape -> oracle callable, for SetReference-style verification
     reference: Optional[Callable[[Shape], Callable]] = None
     #: shapes a TuningSession sweeps when none are given explicitly
@@ -275,6 +278,7 @@ def tunable(name: str, *, space: Callable[..., SearchSpace],
             block_threads: Optional[Callable] = None,
             register_estimate: Optional[Callable] = None,
             cost: Optional[Callable] = None,
+            sources: Sequence[str] = (),
             reference: Optional[Callable] = None,
             default_shapes: Sequence[Mapping[str, Any]] = (),
             defaults: Optional[Dict[str, Any]] = None,
@@ -294,7 +298,7 @@ def tunable(name: str, *, space: Callable[..., SearchSpace],
             shape_key=shape_key, make_args=make_args,
             analytical_model=analytical_model, smem_footprint=smem_footprint,
             block_threads=block_threads, register_estimate=register_estimate,
-            cost=cost, reference=reference,
+            cost=cost, sources=tuple(sources), reference=reference,
             default_shapes=tuple(dict(s) for s in default_shapes),
             defaults=dict(defaults or {}), tags=tuple(tags))
         if register:

@@ -230,6 +230,7 @@ class Tuner:
                            if k.block_threads is not None else None),
             cost=((lambda cfg: k.cost(shape, cfg))
                   if k.cost is not None else None),
+            sources=((k.cost,) if k.cost is not None else ()) + k.sources,
             meta=dict(shape))
         tuner._shape = shape
         tuner._tunable = k
@@ -244,6 +245,7 @@ class Tuner:
                    smem_footprint: Optional[Callable[[Config], int]] = None,
                    block_threads: Optional[Callable[[Config], int]] = None,
                    cost: Optional[Callable] = None,
+                   sources: Sequence[Any] = (),
                    meta: Optional[Dict[str, Any]] = None) -> "Tuner":
         """Register the (single) kernel under tuning.
 
@@ -254,6 +256,9 @@ class Tuner:
         ``block_threads(config) -> threads`` feeds the analyzer's proof
         against the profile's threads per block (``analyze=``), and
         ``cost(config) -> KernelCost`` the cost-model evaluator.
+        ``sources`` are the functions and device source files the cost and
+        the build are made of; with ``cost`` they key the cost model's
+        stored prices (:func:`~repro_torch.core.evaluators.source_digest`).
         """
         if self._spec is not None:
             raise ValueError("a kernel is already registered; "
@@ -261,7 +266,8 @@ class Tuner:
         self._spec = KernelSpec(
             name=name, build=build, make_args=make_args,
             analytical_model=analytical_model, cost=cost,
-            reference=self._reference, meta=meta or {})
+            sources=tuple(sources), reference=self._reference,
+            meta=meta or {})
         self._smem_footprint = smem_footprint
         self._block_threads = block_threads
         self._smem_constraint_added = False

@@ -12,6 +12,13 @@ resolving configs via ``repro_torch.core.registry.lookup``) and ref.py
 the tunable registry.
 """
 
+from typing import Dict
+
 from . import attention, conv2d, matmul
 
-__all__ = ["attention", "conv2d", "matmul"]
+__all__ = ["attention", "conv2d", "launch_counts", "matmul"]
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every kernel's launch count in this process, by counter name."""
+    return {**matmul.LAUNCHES, **conv2d.LAUNCHES, **attention.LAUNCHES}

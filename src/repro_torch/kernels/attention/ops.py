@@ -24,9 +24,9 @@ from ...core import SearchSpace, Tuner, TuningCache
 from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
-from .flash import (analytical_time, block_threads, make_flash_attention,
-                    register_estimate, smem_footprint, traffic,
-                    validate_config)
+from .flash import (DTYPES, SOURCE, analytical_time, block_threads,
+                    make_flash_attention, register_estimate, smem_footprint,
+                    traffic, validate_config)
 from .ref import attention_reference
 
 KERNEL_NAME = "flash_attention"
@@ -120,11 +120,23 @@ def _space(shape: Shape) -> SearchSpace:
     return sp
 
 
+def _dtype(shape: Shape) -> torch.dtype:
+    """The input type the shape names (default float32)."""
+    return DTYPES[shape.get("dtype", "float32")]
+
+
+def _elt_bytes(shape: Shape) -> int:
+    """q/k/v element width from the shape's dtype (default float32)."""
+    return _dtype(shape).itemsize
+
+
 def _make_args(shape: Shape, rng: np.random.Generator):
-    """Host (CPU) operands; the evaluator moves them to its device."""
+    """Host (CPU) operands in the shape's dtype; the evaluator moves them
+    to its device."""
     Sq, Sk, D = shape["Sq"], shape["Sk"], shape["D"]
     def mk(s):
-        return torch.from_numpy((rng.normal(size=s) * 0.5).astype(np.float32))
+        x = torch.from_numpy((rng.normal(size=s) * 0.5).astype(np.float32))
+        return x.to(_dtype(shape))
     return mk((Sq, D)), mk((Sk, D)), mk((Sk, D))
 
 
@@ -135,13 +147,19 @@ def _make_args(shape: Shape, rng: np.random.Generator):
     shape_key=lambda s: shape_key(s["Sq"], s["Sk"], s["D"],
                                   s.get("causal", True)),
     make_args=_make_args,
+    # one element width reaches the args, the build, the model, the
+    # footprint and the cost (the key stays the JAX package's, without it)
     analytical_model=lambda s, cfg, prof: analytical_time(
-        cfg, prof, s["Sq"], s["Sk"], s["D"], causal=s.get("causal", True)),
-    smem_footprint=lambda s, cfg: smem_footprint(cfg, s["D"]),
+        cfg, prof, s["Sq"], s["Sk"], s["D"], elt_bytes=_elt_bytes(s),
+        causal=s.get("causal", True)),
+    smem_footprint=lambda s, cfg: smem_footprint(cfg, s["D"],
+                                                 elt_bytes=_elt_bytes(s)),
     block_threads=lambda s, cfg: block_threads(cfg, s["D"]),
     register_estimate=lambda s, cfg: register_estimate(cfg, s["D"]),
     cost=lambda s, cfg: traffic(cfg, s["Sq"], s["Sk"], s["D"],
-                                causal=s.get("causal", True)),
+                                causal=s.get("causal", True),
+                                elt_bytes=_elt_bytes(s)),
+    sources=(SOURCE,),
     reference=lambda s: (lambda q, k, v: attention_reference(
         q, k, v, causal=s.get("causal", True))),
     default_shapes=(_shape(4096, 4096, 128, causal=True),),
@@ -150,7 +168,8 @@ def _make_args(shape: Shape, rng: np.random.Generator):
 def FLASH_ATTENTION(shape: Shape, config: Config):
     """Flash attention (beyond paper; same tuning methodology)."""
     return make_flash_attention(shape["Sq"], shape["Sk"], shape["D"], config,
-                                causal=shape.get("causal", True))
+                                causal=shape.get("causal", True),
+                                dtype=_dtype(shape))
 
 
 def lookup_config(Sq: int, Sk: int, D: int, causal: bool = True,

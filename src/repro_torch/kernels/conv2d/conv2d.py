@@ -45,6 +45,11 @@ so as a constraint, with the shared-memory footprint
 (:func:`smem_footprint`), so an infeasible config is pruned and never a
 failed launch.
 
+Operands are float32, or both bfloat16 as in the JAX package (whose kernel
+writes the image's dtype): the build for bfloat16 (``IN_BF16``) stages
+the tile as float32, sums in float32 and rounds each output once.  A
+:class:`Conv2d` is made for one input type and builds that type's library.
+
 Which implementation runs follows the tensors' device alone: tensors on
 the CPU take the plain PyTorch version (:func:`conv2d_plain`, the kernel's
 sums in the kernel's order, the counterpart of Pallas interpret mode);
@@ -75,6 +80,9 @@ DEFAULT_CONFIG: Config = {
     "BLOCK_H": 16, "BLOCK_W": 256, "SUB_H": 1, "UNROLL": True,
     "HALO_MODE": "materialize",
 }
+
+#: input types the kernel takes (the shape's ``dtype`` names one)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 #: launches of the CUDA kernel; comparisons and timing runs count too, so a
 #: caller that wants one path's count resets it first
@@ -169,10 +177,10 @@ def resident_threads(config: Config, Fh: int, Fw: int) -> int:
 
 def smem_footprint(config: Config, Fh: int, Fw: int) -> int:
     """Bytes of shared memory one block claims (0 for 'xla'): the halo
-    tile and the filter.  A tile row holds the columns the windows read,
-    TX * ceil(BLOCK_W / TX) + Fw - 1, rounded up to a multiple of 8 (the
-    kernel swizzles quads within pairs), plus PAD_W quads; a filter row is
-    rounded up to a quad."""
+    tile and the filter, staged as float32 whatever the input type.  A
+    tile row holds the columns the windows read, TX * ceil(BLOCK_W / TX) +
+    Fw - 1, rounded up to a multiple of 8 (the kernel swizzles quads within
+    pairs), plus PAD_W quads; a filter row is rounded up to a quad."""
     cfg = _merged(config)
     if cfg["HALO_MODE"] == "xla":
         return 0
@@ -196,10 +204,12 @@ def validate_config(config: Config, H: int, W: int, Fh: int, Fw: int) -> None:
                          "at most 1024")
 
 
-def _defines(cfg: Config, Fh: int, Fw: int) -> Dict[str, int]:
+def _defines(cfg: Config, Fh: int, Fw: int,
+             dtype: torch.dtype = torch.float32) -> Dict[str, int]:
     return {"BLOCK_H": cfg["BLOCK_H"], "BLOCK_W": cfg["BLOCK_W"],
             "SUB_H": cfg["SUB_H"], "UNROLL": int(bool(cfg["UNROLL"])),
-            "PAD_W": int(cfg.get("PAD_W", 0)), "FH": Fh, "FW": Fw}
+            "PAD_W": int(cfg.get("PAD_W", 0)), "FH": Fh, "FW": Fw,
+            "IN_BF16": int(dtype == torch.bfloat16)}
 
 
 def conv2d_plain(image: torch.Tensor, filt: torch.Tensor,
@@ -229,31 +239,39 @@ def conv2d_plain(image: torch.Tensor, filt: torch.Tensor,
 
 
 class Conv2d:
-    """``fn(image, filt) -> (H, W)`` for one shape and configuration.
+    """``fn(image, filt) -> (H, W)`` for one shape, configuration and input
+    type.
 
     What :func:`make_conv2d` returns.  :meth:`compile` does the host-side
-    build of the CUDA library (``nvcc`` and loading it) and returns its
-    content address (None for 'xla', which builds nothing); the first call
-    on CUDA tensors builds it if that has not happened yet.  A call on CPU
-    tensors runs :func:`conv2d_plain`.
+    build of the CUDA library for ``dtype`` (``nvcc`` and loading it) and
+    returns its content address (None for 'xla', which builds nothing); the
+    first call on CUDA tensors builds it if that has not happened yet.  A
+    call on CPU tensors runs :func:`conv2d_plain`.  Operands of another
+    type are refused.
     """
 
     build_name = BUILD_NAME
+    source = SOURCE
 
     def __init__(self, H: int, W: int, Fh: int, Fw: int,
-                 config: Optional[Config], weight: float = 1.0):
+                 config: Optional[Config], weight: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         cfg = _merged(config)
         validate_config(cfg, H, W, Fh, Fw)
+        if dtype not in DTYPES.values():
+            raise ValueError(f"conv2d takes float32 or bfloat16, not {dtype}")
         self.H, self.W, self.Fh, self.Fw = H, W, Fh, Fw
         self.config = cfg
         self.weight = float(weight)
+        self.dtype = dtype
         self.route = "cuda" if cfg["HALO_MODE"] == "materialize" else "library"
         self._lib: Optional[ctypes.CDLL] = None
         self.address: Optional[str] = None
 
     def defines(self) -> Tuple[Tuple[str, int], ...]:
         """The build's -D defines: one library per distinct value."""
-        return tuple(sorted(_defines(self.config, self.Fh, self.Fw).items()))
+        return tuple(sorted(_defines(self.config, self.Fh, self.Fw,
+                                     self.dtype).items()))
 
     def compile(self) -> Optional[str]:
         if self.route == "library":
@@ -293,9 +311,9 @@ class Conv2d:
                 f"conv2d built for image {(self.H, self.W)} and filter "
                 f"{(self.Fh, self.Fw)}, given {tuple(image.shape)} and "
                 f"{tuple(filt.shape)}")
-        if image.dtype != torch.float32 or filt.dtype != torch.float32:
-            raise ValueError(f"conv2d takes float32, given {image.dtype} "
-                             f"and {filt.dtype}")
+        if image.dtype != self.dtype or filt.dtype != self.dtype:
+            raise ValueError(f"conv2d built for {self.dtype}, given "
+                             f"{image.dtype} and {filt.dtype}")
         if image.device != filt.device:
             raise ValueError(f"operands on {image.device} and {filt.device}")
 
@@ -317,10 +335,9 @@ class Conv2d:
                 ) -> torch.Tensor:
         if not (image.is_contiguous() and filt.is_contiguous()):
             raise ValueError("the conv2d kernel takes contiguous operands")
-        if self._lib is None:
-            self.compile()
+        self.compile()
         lib = self._lib
-        out = torch.empty((self.H, self.W), dtype=torch.float32,
+        out = torch.empty((self.H, self.W), dtype=self.dtype,
                           device=image.device)
         stream = torch.cuda.current_stream(image.device).cuda_stream
         err = lib.conv2d_launch(image.data_ptr(), filt.data_ptr(),
@@ -336,9 +353,11 @@ class Conv2d:
 
 def make_conv2d(H: int, W: int, Fh: int, Fw: int,
                 config: Optional[Config] = None,
-                weight: float = 1.0) -> Conv2d:
-    """Return fn(image, filt) -> (H, W) convolved output."""
-    return Conv2d(H, W, Fh, Fw, config, weight)
+                weight: float = 1.0,
+                dtype: torch.dtype = torch.float32) -> Conv2d:
+    """Return fn(image, filt) -> (H, W) convolved output; ``image``,
+    ``filt`` and the result have ``dtype`` (float32 or bfloat16)."""
+    return Conv2d(H, W, Fh, Fw, config, weight, dtype)
 
 
 # ---------------------------------------------------------------------------

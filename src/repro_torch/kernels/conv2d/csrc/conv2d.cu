@@ -1,6 +1,7 @@
 // Single-channel same-size 2D cross-correlation for Hopper (sm_90a):
 //   out[r, c] = weight * sum_{i<FH, j<FW} filt[i, j] * img[r + i - FH/2, c + j - FW/2]
-// with zeros outside the image, float32 throughout.
+// with zeros outside the image, summed in float32.  The image, the filter
+// and the output are float32, or bfloat16 with IN_BF16.
 //
 // Replaces the Pallas TPU kernel body of the JAX package,
 // src/repro/kernels/conv2d/conv2d.py::_conv_kernel, built by make_conv2d
@@ -24,6 +25,10 @@
 //   PAD_W             16-byte quads of padding at the end of each
 //                     shared-memory row (the paper's PAD)
 //   FH, FW            the filter's shape
+//   IN_BF16           1: the image, the filter and the output are bfloat16
+//                     (else float32); the halo tile and the filter are
+//                     staged in shared memory as float32 and every sum is
+//                     float32, rounded once to bfloat16 on the store
 //
 // Thread geometry (conv2d.py::block_threads, ::micro_tile): TY = BLOCK_H /
 // SUB_H row groups, TX = min(BLOCK_W, max(32, 256 / TY)) threads along a
@@ -71,6 +76,7 @@
 // 1536 resident threads an SM (__launch_bounds__), others for 1024 (64
 // registers): while one block stages its halo, others compute.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #if !defined(BLOCK_H) || !defined(BLOCK_W) || !defined(FH) || !defined(FW)
@@ -84,6 +90,19 @@
 #endif
 #ifndef PAD_W
 #define PAD_W 0
+#endif
+#ifndef IN_BF16
+#define IN_BF16 0
+#endif
+
+#if IN_BF16
+typedef __nv_bfloat16 elem_t;
+__device__ __forceinline__ float to_f32(elem_t x) { return __bfloat162float(x); }
+__device__ __forceinline__ elem_t from_f32(float x) { return __float2bfloat16_rn(x); }
+#else
+typedef float elem_t;
+__device__ __forceinline__ float to_f32(elem_t x) { return x; }
+__device__ __forceinline__ elem_t from_f32(float x) { return x; }
 #endif
 
 namespace {
@@ -203,7 +222,7 @@ __device__ __forceinline__ void cp_async4(unsigned dst, const float* src,
 
 // stage the halo tile: zeros outside the image and past TILE_W
 __device__ __forceinline__ void stage_tile(float* tile,
-                                           const float* __restrict__ img,
+                                           const elem_t* __restrict__ img,
                                            int H, int W, int r0, int c0,
                                            int tid) {
     constexpr int LANES = NTHREADS < 32 ? NTHREADS : 32;
@@ -212,35 +231,46 @@ __device__ __forceinline__ void stage_tile(float* tile,
     const int lane = tid % LANES, warp = tid / LANES;
     const int gr0 = r0 - FH / 2, gc0 = c0 - FW / 2;
     const bool cols_in = gc0 >= 0 && gc0 + TILE_W <= W;
+#if !IN_BF16
     const unsigned base = (unsigned)__cvta_generic_to_shared(tile);
+#endif
     if (warp < NWARPS) {
 #pragma unroll 1
         for (int r = warp; r < TILE_H; r += NWARPS) {
             const int gr = gr0 + r;
             const bool row_in = gr >= 0 && gr < H;
-            const float* src =
+            const elem_t* src =
                 img + (size_t)(row_in ? gr : 0) * W + gc0 + lane;
+#if !IN_BF16
             const unsigned dst = base + 4u * (unsigned)(r * STRIDE);
+#endif
 #pragma unroll
             for (int m = 0; m < M; ++m) {
                 const int c = lane + LANES * m;
                 if (c < ROW) {
                     const bool in = row_in && c < TILE_W &&
                                     (cols_in || (gc0 + c >= 0 && gc0 + c < W));
+#if IN_BF16
+                    tile[r * STRIDE + phys(c)] =
+                        in ? to_f32(src[LANES * m]) : 0.f;
+#else
                     cp_async4(dst + 4u * (unsigned)phys(c),
                               in ? src + LANES * m : img, in);
+#endif
                 }
             }
         }
     }
+#if !IN_BF16
     asm volatile("cp.async.wait_all;\n" ::: "memory");
+#endif
 }
 
 }  // namespace
 
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-conv2d_kernel(const float* __restrict__ img, const float* __restrict__ filt,
-              float* __restrict__ out, int H, int W, float weight) {
+conv2d_kernel(const elem_t* __restrict__ img, const elem_t* __restrict__ filt,
+              elem_t* __restrict__ out, int H, int W, float weight) {
     extern __shared__ __align__(16) float smem[];
     float* tile = smem;                      // [TILE_H][STRIDE], swizzled
     float* f = smem + TILE_H * STRIDE;       // [FH][FWP], zero padded
@@ -251,7 +281,7 @@ conv2d_kernel(const float* __restrict__ img, const float* __restrict__ filt,
 
     for (int idx = tid; idx < FH * FWP; idx += NTHREADS) {
         const int i = idx / FWP, j = idx % FWP;
-        f[idx] = j < FW ? filt[i * FW + j] : 0.f;
+        f[idx] = j < FW ? to_f32(filt[i * FW + j]) : 0.f;
     }
     stage_tile(tile, img, H, W, r0, c0, tid);
     __syncthreads();
@@ -279,7 +309,9 @@ conv2d_kernel(const float* __restrict__ img, const float* __restrict__ filt,
             filter_row(acc, tile + (row0 + i) * STRIDE, f + i * FWP, off);
 
         const int gc = c0 + cs;
+#if !IN_BF16
         const bool whole = BLOCK_W % V == 0 && W % V == 0 && gc + CG <= lim;
+#endif
 #pragma unroll
         for (int s = 0; s < SUB_H; ++s) {
             const int gr = r0 + row0 + s;
@@ -287,7 +319,12 @@ conv2d_kernel(const float* __restrict__ img, const float* __restrict__ filt,
             float o[CG];
 #pragma unroll
             for (int k = 0; k < CG; ++k) o[k] = weight * acc[s][k];
-            float* dst = out + (size_t)gr * W + gc;
+            elem_t* dst = out + (size_t)gr * W + gc;
+#if IN_BF16
+#pragma unroll
+            for (int k = 0; k < CG; ++k)
+                if (gc + k < lim) dst[k] = from_f32(o[k]);
+#else
             if (whole) {
 #pragma unroll
                 for (int v = 0; v < CG / V; ++v)
@@ -297,6 +334,7 @@ conv2d_kernel(const float* __restrict__ img, const float* __restrict__ filt,
                 for (int k = 0; k < CG; ++k)
                     if (gc + k < lim) dst[k] = o[k];
             }
+#endif
         }
     }
 }
@@ -305,8 +343,9 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of CUDA device `device`; does not
 // synchronise.  Returns a cudaError_t: 0 when the launch was accepted.
-// The caller guarantees contiguous row-major float32 img (H, W), filt
-// (FH, FW) and out (H, W) on `device`, out 16-byte aligned.
+// The caller guarantees contiguous row-major img (H, W), filt (FH, FW) and
+// out (H, W) on `device`, float32 (bfloat16 with IN_BF16), out 16-byte
+// aligned.
 int conv2d_launch(const void* img, const void* filt, void* out, int H, int W,
                   float weight, int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
@@ -318,7 +357,7 @@ int conv2d_launch(const void* img, const void* filt, void* out, int H, int W,
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((W + BLOCK_W - 1) / BLOCK_W, (H + BLOCK_H - 1) / BLOCK_H);
     conv2d_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-        (const float*)img, (const float*)filt, (float*)out, H, W, weight);
+        (const elem_t*)img, (const elem_t*)filt, (elem_t*)out, H, W, weight);
     return (int)cudaGetLastError();
 }
 

@@ -19,8 +19,9 @@ from ...core import SearchSpace, Tuner, TuningCache
 from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
-from .conv2d import (analytical_time, block_threads, make_conv2d,
-                     micro_tile, register_estimate, smem_footprint, traffic)
+from .conv2d import (DTYPES, SOURCE, analytical_time, block_threads,
+                     make_conv2d, micro_tile, register_estimate,
+                     smem_footprint, traffic)
 from .ref import conv2d_reference
 
 KERNEL_NAME = "conv2d"
@@ -97,12 +98,23 @@ def _space(shape: Shape, extended: bool = True) -> SearchSpace:
     return sp
 
 
+def _dtype(shape: Shape) -> torch.dtype:
+    """The input type the shape names (default float32)."""
+    return DTYPES[shape.get("dtype", "float32")]
+
+
+def _elt_bytes(shape: Shape) -> int:
+    """Image element width from the shape's dtype (default float32)."""
+    return _dtype(shape).itemsize
+
+
 def _make_args(shape: Shape, rng: np.random.Generator):
-    """Host (CPU) operands; the evaluator moves them to its device."""
+    """Host (CPU) operands in the shape's dtype; the evaluator moves them
+    to its device."""
     H, W, Fh, Fw = shape["H"], shape["W"], shape["Fh"], shape["Fw"]
     img = torch.from_numpy(rng.normal(size=(H, W)).astype(np.float32))
     flt = torch.from_numpy(rng.normal(size=(Fh, Fw)).astype(np.float32))
-    return img, flt
+    return img.to(_dtype(shape)), flt.to(_dtype(shape))
 
 
 def _registers(cfg: Config, Fh: int, Fw: int) -> int:
@@ -119,12 +131,18 @@ def _registers(cfg: Config, Fh: int, Fw: int) -> int:
     heuristic=lambda s: heuristic_config(s["H"], s["W"], s["Fh"], s["Fw"]),
     shape_key=lambda s: shape_key(s["H"], s["W"], s["Fh"], s["Fw"]),
     make_args=_make_args,
+    # the shape's dtype reaches the args, the build, the model and the
+    # cost alike; the footprint is the float32 tile the build stages for
+    # either input type
     analytical_model=lambda s, cfg, prof: analytical_time(
-        cfg, prof, s["H"], s["W"], s["Fh"], s["Fw"]),
+        cfg, prof, s["H"], s["W"], s["Fh"], s["Fw"],
+        elt_bytes=_elt_bytes(s)),
     smem_footprint=lambda s, cfg: smem_footprint(cfg, s["Fh"], s["Fw"]),
     block_threads=lambda s, cfg: block_threads(cfg),
     register_estimate=lambda s, cfg: _registers(cfg, s["Fh"], s["Fw"]),
-    cost=lambda s, cfg: traffic(cfg, s["H"], s["W"], s["Fh"], s["Fw"]),
+    cost=lambda s, cfg: traffic(cfg, s["H"], s["W"], s["Fh"], s["Fw"],
+                                elt_bytes=_elt_bytes(s)),
+    sources=(SOURCE,),
     reference=lambda s: conv2d_reference,
     default_shapes=(_shape(4096, 4096, 3, 3),),
     # paper V-B: budget 107 = 1/32 of the 3424-config EXTENDED space, so
@@ -134,7 +152,7 @@ def _registers(cfg: Config, Fh: int, Fw: int) -> int:
 def CONV2D(shape: Shape, config: Config):
     """The paper's section V case study: 2D convolution."""
     return make_conv2d(shape["H"], shape["W"], shape["Fh"], shape["Fw"],
-                       config)
+                       config, dtype=_dtype(shape))
 
 
 def lookup_config(H: int, W: int, Fh: int, Fw: int,
@@ -160,7 +178,8 @@ def conv2d(image: torch.Tensor, filt: torch.Tensor,
     cfg = config or lookup_config(H, W, Fh, Fw,
                                   resolve_profile(profile, image.device),
                                   policy=policy)
-    return make_conv2d(H, W, Fh, Fw, cfg, weight=weight)(image, filt)
+    return make_conv2d(H, W, Fh, Fw, cfg, weight=weight,
+                       dtype=image.dtype)(image, filt)
 
 
 # ---------------------------------------------------------------------------

@@ -288,8 +288,9 @@ def analytical_time(config: Config, profile: DeviceProfile,
 
     The bytes are what the blocks stream: every block reads its BLOCK_M
     rows of A and BLOCK_N columns of B over all of K, and writes its tile
-    once, so small tiles pay in traffic.  Past the shared-memory cliff the
-    configuration is infeasible (``math.inf``).  A model for searches
+    once, so small tiles pay in traffic.  Past the shared-memory cliff (the
+    footprint at ``elt_bytes``, as the build stages it) the configuration
+    is infeasible (``math.inf``).  A model for searches
     without a card; it makes no claim about the kernel's time.
     """
     cfg = _merged(config)
@@ -298,7 +299,7 @@ def analytical_time(config: Config, profile: DeviceProfile,
         return math.inf
     if cfg["ACC_IN_OUTPUT"] and cfg["ACC_DTYPE"] != "float32":
         return math.inf
-    if not profile.fits_smem(smem_footprint(cfg)):
+    if not profile.fits_smem(smem_footprint(cfg, elt_bytes)):
         return math.inf                       # the paper's local-memory cliff
     gm, gn = M // bm, N // bn
     compute_t = flops(M, N, K) / profile.peak_f32_flops

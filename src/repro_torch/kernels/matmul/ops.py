@@ -24,8 +24,8 @@ from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
 from . import ref
-from .matmul import (DTYPES, analytical_time, make_matmul, micro_tile,
-                     smem_footprint, traffic)
+from .matmul import (DTYPES, SOURCE, analytical_time, make_matmul,
+                     micro_tile, smem_footprint, traffic)
 
 KERNEL_NAME = "gemm"
 
@@ -138,12 +138,23 @@ def _space(shape: Shape, extended: bool = False) -> SearchSpace:
     return sp
 
 
+def _dtype(shape: Shape) -> torch.dtype:
+    """The input type the shape names (default float32)."""
+    return DTYPES[shape.get("dtype", "float32")]
+
+
+def _elt_bytes(shape: Shape) -> int:
+    """Input element width from the shape's dtype (default float32)."""
+    return _dtype(shape).itemsize
+
+
 def _make_args(shape: Shape, rng: np.random.Generator):
-    """Host (CPU) operands; the evaluator moves them to its device."""
+    """Host (CPU) operands in the shape's dtype; the evaluator moves them
+    to its device."""
     M, N, K = shape["M"], shape["N"], shape["K"]
     a = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32))
     b = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32))
-    return a, b
+    return a.to(_dtype(shape)), b.to(_dtype(shape))
 
 
 @tunable(
@@ -153,20 +164,25 @@ def _make_args(shape: Shape, rng: np.random.Generator):
     shape_key=lambda s: shape_key(s["M"], s["N"], s["K"],
                                   s.get("dtype", "float32")),
     make_args=_make_args,
+    # one element width reaches the args, the build, the model, the
+    # footprint and the cost, so a proof, a price and a time describe the
+    # same build
     analytical_model=lambda s, cfg, prof: analytical_time(
-        cfg, prof, s["M"], s["N"], s["K"]),
-    smem_footprint=lambda s, cfg: smem_footprint(cfg),
+        cfg, prof, s["M"], s["N"], s["K"], elt_bytes=_elt_bytes(s)),
+    smem_footprint=lambda s, cfg: smem_footprint(
+        cfg, elt_bytes=_elt_bytes(s)),
     block_threads=lambda s, cfg: micro_tile(cfg)[2],
-    cost=lambda s, cfg: traffic(
-        cfg, s["M"], s["N"], s["K"],
-        DTYPES[s.get("dtype", "float32")].itemsize),
+    cost=lambda s, cfg: traffic(cfg, s["M"], s["N"], s["K"],
+                                elt_bytes=_elt_bytes(s)),
+    sources=(SOURCE,),
     reference=lambda s: (lambda a, b: ref.gemm_reference(a, b)),
     default_shapes=(_shape(2048, 2048, 2048),),
     defaults={"strategy": "annealing", "budget": 100},
     tags=("paper-case-study", "gemm"))
 def GEMM(shape: Shape, config: Config):
     """The paper's section VI case study: the tiled CUDA GEMM."""
-    return make_matmul(shape["M"], shape["N"], shape["K"], config)
+    return make_matmul(shape["M"], shape["N"], shape["K"], config,
+                       out_dtype=_dtype(shape))
 
 
 def lookup_config(M: int, N: int, K: int,

@@ -17,9 +17,9 @@ work-list built with ``add``), and ship the single resulting
 ``tuned_configs.json`` with the binary.
 
 Where no profile is given, it is the profile of the device the evaluator
-measures on (the current CUDA device by default).  The distributed
-``tune_kernel_distributed`` of the JAX package waits for the port of
-``dtune/``.
+measures on (the current CUDA device by default).
+``tune_kernel_distributed`` shards one search over a fleet of workers
+(:mod:`repro_torch.dtune`).
 """
 
 from __future__ import annotations
@@ -150,6 +150,55 @@ def tune_kernel(kernel: "TunableKernel | str", shape: Shape, *,
                       engine=engine, seeds=all_seeds or None,
                       objective=objective, predictor=predictor,
                       analyze=analyze, **strategy_kwargs)
+
+
+def tune_kernel_distributed(kernel: "TunableKernel | str", shape: Shape, *,
+                            n_workers: Optional[int] = None,
+                            mode: Optional[str] = None,
+                            driver: Optional[str] = None,
+                            profile: Optional[DeviceProfile] = None,
+                            evaluator: Any = None,
+                            cache: Optional[TuningCache] = None,
+                            artifact_store: "ArtifactStore | str | None"
+                            = None,
+                            budget: Optional[int] = None,
+                            engine: "EngineConfig | Dict[str, Any] | None"
+                            = None,
+                            device: Optional[str] = None,
+                            extended_space: Optional[bool] = None,
+                            warm_start: "bool | int" = True,
+                            seed: int = 0,
+                            record: bool = True,
+                            objective: "str | Any | None" = None,
+                            predictor: Any = None,
+                            timeout_s: Optional[float] = None):
+    """Tune one kernel for one shape across a worker fleet.
+
+    The distributed counterpart of :func:`tune_kernel`: the search space
+    is sharded over ``n_workers`` (default ``$REPRO_DTUNE_WORKERS`` or 4)
+    in ``mode`` ``"strided"`` (exact partition, exhaustive — default) or
+    ``"islands"`` (per-worker annealing/PSO/evolutionary/random with
+    warm-start seeds), run on the ``"thread"`` or ``"process"`` (spawn)
+    driver, and the per-worker results are folded into the shared cache
+    under the best-finite-time-per-key merge rule.  ``budget`` is *per
+    worker*.  ``device`` is where the workers run (None = the evaluator's,
+    the card by default; ``"cpu"`` for the plain versions); ``profile``
+    defaults to that device's.  Returns a
+    :class:`repro_torch.dtune.DistributedOutcome`.
+
+    Note ``evaluator`` here is a *spec* (``make_evaluator`` name or
+    ``{"name": ..., **kwargs}`` dict, or a live instance for the thread
+    driver) so it can cross process boundaries.
+    """
+    from ..dtune import DistributedTuner      # lazy: dtune sits above us
+    tuner = DistributedTuner(
+        kernel, shape, n_workers=n_workers, mode=mode, driver=driver,
+        profile=profile, evaluator=evaluator, cache=cache,
+        artifact_store=artifact_store, budget=budget,
+        engine=engine, device=device, extended_space=extended_space,
+        warm_start=warm_start, seed=seed, record=record,
+        objective=objective, predictor=predictor)
+    return tuner.run(timeout_s=timeout_s)
 
 
 @dataclasses.dataclass
