@@ -66,6 +66,17 @@ each printing its own lines:
      GEMM shape no phase tunes from its heuristic resolution while the
      main thread keeps calling matmul() with the ConfigSlot's snapshot,
      every result held to the oracle before and after the swap; then
+     serve: granite-3-2b at full width (40 layers, bf16, random weights
+     from a seeded torch.Generator on the card) through the port's serve
+     path: float32 decode against forward over (2, 32) tokens (1e-4 of
+     max|logit|, TF32 off), bf16 against float32 over 6 decode steps at
+     4 slots (8e-2), the launcher (8 requests x 16 tokens, 4 slots, 256
+     positions), an engine retuning flash on the card while it serves
+     (the flash launch count, a tuned swap, the decode gemm's job failing
+     on its empty space) and an offline engine on the same traffic: the
+     same tokens, the step's ms from CUDA events at each step boundary,
+     tokens/s, the share of the weight-read bound, and one step's device
+     kernels and busy share from one torch.profiler trace; then
      build_space: every fourth distinct conv build of the extended space
      at 3x3 (93 of its 372), 16 nvcc at a time, with ptxas's
      registers and spills (none may spill; after the searches, so their
@@ -101,6 +112,7 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import math
@@ -124,6 +136,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analyze import (analyze_registry,  # noqa: E402
                                  proven_violations)
+from repro_torch.configs import get_config as get_model_config  # noqa: E402
 from repro_torch.core import (H100_SXM, ArtifactStore,  # noqa: E402
                               CostModelEvaluator, LearnedPredictor, Tuner,
                               TuningCache, WallClockEvaluator, default_cache,
@@ -140,8 +153,11 @@ from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E40
                                         gemm_reference, heuristic_config,
                                         lookup_config, make_matmul, matmul,
                                         micro_tile, smem_footprint)
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import (count_params, decode_step,  # noqa: E402
+                                forward, init_cache, init_model, model_defs)
 from repro_torch.serve import (BackgroundTuner, ConfigSlot,  # noqa: E402
-                               JobStatus, OnlineTuneConfig,
+                               JobStatus, OnlineTuneConfig, ServeEngine,
                                submit_for_resolutions)
 from repro_torch.tune import tune_kernel, tune_kernel_distributed  # noqa: E402
 mm_kernel = importlib.import_module("repro_torch.kernels.matmul.matmul")
@@ -1464,6 +1480,302 @@ def phase_online(shape3, device, tmp, budget=8, timeout_s=600.0):
     return record
 
 
+# ---------------------------------------------------------------------------
+# the serve path: granite-3-2b through the models, the serve step, the
+# engine and its launcher
+# ---------------------------------------------------------------------------
+
+#: float32 decode against forward: tests/test_models_math.py's bound
+SERVE_PARITY_TOL = 1e-4
+#: bf16 decode against float32 on the same weights, |d| / max|f32 logit|:
+#: about twice the JAX package's own drift at full width and 40 layers
+#: (3.3-4.0 % over 6 decode steps at 4 slots, measured on the CPU)
+SERVE_BF16_TOL = 8e-2
+#: the launcher's defaults (the JAX package's): requests, slots, new
+#: tokens, positions
+SERVE_TRAFFIC = (8, 4, 16, 256)
+#: the offline engine's decode step that one torch.profiler trace covers
+PROFILED_STEP = 5
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree.values() for t in _tree_leaves(v)]
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return {k: _tree_map(fn, v) for k, v in tree.items()}
+
+
+def _rel_err(x, ref):
+    """Largest |x - ref| / max|ref|."""
+    x, ref = x.double(), ref.double()
+    return ((x - ref).abs().max() / ref.abs().max()).item()
+
+
+def _serve_parity(cfg, params, device, rng):
+    """float32 decode against forward (2, 32) on a float32 copy of the
+    weights, TF32 off; then bf16 against float32 over 6 decode steps at 4
+    slots."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    params32 = _tree_map(lambda t: t.float(), params)
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            B, S = 2, 32
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (B, S)).astype(np.int32)).to(device)
+            full, _ = forward(cfg32, params32, {"tokens": toks})
+            kv = init_cache(cfg32, B, S, device)
+            steps = []
+            for pos in range(S):
+                lg, kv = decode_step(cfg32, params32, kv,
+                                     toks[:, pos:pos + 1], pos)
+                steps.append(lg)
+            parity = _rel_err(torch.stack(steps, dim=1), full)
+            del full, kv, steps
+            slots, n = SERVE_TRAFFIC[1], 6
+            toks = torch.from_numpy(rng.integers(
+                0, cfg.vocab_size, (slots, n)).astype(np.int32)).to(device)
+            kv16 = init_cache(cfg, slots, n, device)
+            kv32 = init_cache(cfg32, slots, n, device)
+            drift, agree = [], 0
+            for pos in range(n):
+                t = toks[:, pos:pos + 1]
+                lg16, kv16 = decode_step(cfg, params, kv16, t, pos)
+                lg32, kv32 = decode_step(cfg32, params32, kv32, t, pos)
+                drift.append(_rel_err(lg16, lg32))
+                agree += int((lg16.argmax(-1) == lg32.argmax(-1)).sum())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    return {"decode_vs_forward_f32": parity, "bf16_vs_f32_by_step": drift,
+            "bf16_vs_f32": max(drift), "top1_agree": agree,
+            "top1_rows": slots * n}
+
+
+def _profiled_step(at, device):
+    """(state, on_step): an ``on_step`` hook that traces decode step ``at``
+    alone with torch.profiler (the trace lands in ``state["prof"]``)."""
+    from torch.profiler import ProfilerActivity, profile
+    state = {}
+
+    def on_step(eng, step):
+        if step == at:
+            state["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+            state["prof"].__enter__()
+        elif step == at + 1 and "prof" in state:
+            sync(device)
+            state["prof"].__exit__(None, None, None)
+            state["done"] = True
+    return state, on_step
+
+
+def _device_ops(prof):
+    """(kernels, copies, device us) of the CUDA activities in a trace."""
+    kernels = copies = 0
+    us = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if e.name.startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
+        us += e.time_range.elapsed_us()
+    return kernels, copies, us
+
+
+def _serve_rounds(engine, cfg, rounds, on_step=None):
+    """Serve the launcher's traffic ``rounds`` times; each round's outputs
+    by request id."""
+    n, _, new, _ = SERVE_TRAFFIC
+    out = []
+    for _ in range(rounds):
+        for req in serve_launcher.make_requests(cfg, n, new, seed=0):
+            engine.submit(req)
+        done = engine.run(on_step=on_step)
+        if len(done) != n or any(not r.done or len(r.output) != new
+                                 for r in done):
+            got = [(r.rid, r.done, len(r.output)) for r in done]
+            raise AssertionError(f"[serve] a request did not finish with "
+                                 f"{new} tokens: {got}")
+        out.append({r.rid: r.output for r in done})
+    return out
+
+
+def phase_serve(device, tmp, full, timeout_s=600.0):
+    """granite-3-2b on the serve path: parity of decode with forward and of
+    bf16 with float32, the launcher, an engine's step time, and an engine
+    whose flash config is retuned on the card while it serves."""
+    cfg = get_model_config("granite-3-2b", smoke=not full)
+    n_req, slots, new, max_len = SERVE_TRAFFIC
+    t0 = time.perf_counter()
+    params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
+                        device)
+    sync(device)
+    init_s = time.perf_counter() - t0
+    leaves = _tree_leaves(params)
+    n_params = sum(t.numel() for t in leaves)
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    bound_ms = weight_bytes / H100_SXM.hbm_bw * 1e3
+    record = {"config": cfg.name, "layers": cfg.num_layers,
+              "params": n_params, "weight_bytes": weight_bytes,
+              "dtype": cfg.param_dtype, "init_s": init_s,
+              "weight_read_bound_ms": bound_ms}
+    if n_params != count_params(model_defs(cfg)):
+        raise AssertionError(f"[serve] {n_params} parameters, the model's "
+                             f"tree has {count_params(model_defs(cfg))}")
+
+    record.update(_serve_parity(cfg, params, device,
+                                np.random.default_rng(0)))
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    launched = serve_launcher.main(
+        (["--full"] if full else []) + [
+            "--requests", str(n_req), "--slots", str(slots),
+            "--max-new-tokens", str(new), "--max-len", str(max_len),
+            "--device", device.type])
+    record["launcher_s"] = time.perf_counter() - t0
+    record["launcher_tokens"] = [len(r.output) for r in launched]
+    if len(launched) != n_req or any(len(r.output) != new or not r.done
+                                     for r in launched):
+        raise AssertionError(f"[serve] the launcher served {record}")
+    del launched
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # online: the engine's flash config is retuned on the card (wall clock)
+    # while it serves; the gemm job has no feasible point at (slots, V, d).
+    # The flash job measures the first four points of its space in order,
+    # none of them the served heuristic, so its winner always swaps in:
+    # this checks the swap, not the search (warm-started annealing kept
+    # the heuristic on the card, so its swap was a no-op)
+    def evaluator(k, shape, profile):
+        tol = FLASH_TOL if k.name == fa.FLASH_ATTENTION.name else MAIN_TOL
+        return WallClockEvaluator(atol=tol, rtol=tol, device=device)
+
+    knobs = OnlineTuneConfig(strategy="full", budget=4, warm_start=False,
+                             evaluator_factory=evaluator)
+    zero_counts()
+    t0 = time.perf_counter()
+    with ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                     cache=TuningCache(os.path.join(tmp, "serve.json")),
+                     online_tune=knobs) as online:
+        resolutions = {n: {"key": r.key, "provenance": r.provenance,
+                           "config": r.config}
+                       for n, r in online.kernel_resolutions.items()}
+        online_out = []
+        while (any(j.status in (JobStatus.PENDING, JobStatus.RUNNING)
+                   for j in online.tune_jobs.values())
+               and time.perf_counter() - t0 < timeout_s):
+            online_out += _serve_rounds(online, cfg, 1)
+        online_out += _serve_rounds(online, cfg, 1)   # after the last swap
+        jobs = {n: {"status": j.status.value, "error": j.error,
+                    "config": j.config, "evaluations": j.evaluations}
+                for n, j in online.tune_jobs.items()}
+        swaps = list(online.swap_events)
+        online_steps = online.steps_total
+    launches = read_counts()
+    record.update({"online_s": time.perf_counter() - t0,
+                   "online_rounds": len(online_out),
+                   "online_steps": online_steps, "resolutions": resolutions,
+                   "jobs": jobs, "swap_events": swaps,
+                   "launches": launches})
+
+    # the same traffic on an offline engine: the tokens to hold the online
+    # engine to, and the step time (CUDA events at each step boundary)
+    with ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                     cache=TuningCache(os.path.join(tmp, "serve0.json")),
+                     online_tune=False) as offline:
+        # CUDA events at each step boundary; step PROFILED_STEP is traced,
+        # so it and the next (the trace's start and end) are not timed
+        events = []
+        state, profile_step = _profiled_step(PROFILED_STEP, device)
+
+        def on_step(eng, step):
+            if device.type == "cuda":
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((step, ev))
+                profile_step(eng, step)
+            else:
+                events.append((step, time.perf_counter()))
+
+        sync(device)
+        t0 = time.perf_counter()
+        offline_out = _serve_rounds(offline, cfg, len(online_out), on_step)
+        sync(device)
+        wall = time.perf_counter() - t0
+        steps = offline.steps_total
+    if device.type == "cuda":
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        end.synchronize()
+        events.append((steps, end))
+        elapsed = lambda a, b: a.elapsed_time(b)  # noqa: E731
+    else:
+        events.append((steps, time.perf_counter()))
+        elapsed = lambda a, b: (b - a) * 1e3  # noqa: E731
+    step_ms = [elapsed(a, b) for (i, a), (j, b) in zip(events, events[1:])
+               if j == i + 1 and i not in (PROFILED_STEP, PROFILED_STEP + 1)]
+    tokens = sum(len(o) for r in offline_out for o in r.values())
+    med = float(np.median(step_ms))
+    record.update({"offline_steps": steps, "tokens": tokens,
+                   "wall_s": wall, "tokens_per_s": tokens / wall,
+                   "step_ms_median": med,
+                   "step_ms_p10_p90": [float(np.percentile(step_ms, 10)),
+                                       float(np.percentile(step_ms, 90))],
+                   "bound_share": bound_ms / med})
+    if device.type == "cuda":
+        if not state.get("done"):
+            raise AssertionError("[serve] the profiled step did not end")
+        kernels, copies, us = _device_ops(state["prof"])
+        record.update({"kernels_per_step": kernels,
+                       "copies_per_step": copies,
+                       "device_ms_per_step": us / 1e3,
+                       "device_busy_share": us / 1e3 / med,
+                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30})
+    record["tokens_equal"] = offline_out == online_out
+    print("[serve] " + json.dumps(record))
+
+    if record["decode_vs_forward_f32"] > SERVE_PARITY_TOL:
+        raise AssertionError(f"[serve] float32 decode is "
+                             f"{record['decode_vs_forward_f32']:.3g} from "
+                             f"forward (limit {SERVE_PARITY_TOL})")
+    if record["bf16_vs_f32"] > SERVE_BF16_TOL:
+        raise AssertionError(f"[serve] bf16 decode is "
+                             f"{record['bf16_vs_f32']:.3g} from float32 "
+                             f"(limit {SERVE_BF16_TOL})")
+    if not record["tokens_equal"]:
+        raise AssertionError("[serve] the online engine's tokens differ "
+                             "from the offline engine's")
+    gemm = jobs.get("gemm", {})
+    if gemm.get("status") != JobStatus.FAILED.value \
+            or "no feasible" not in (gemm.get("error") or ""):
+        raise AssertionError(f"[serve] the gemm job at (slots, vocab, "
+                             f"d_model) did not fail as the JAX package's "
+                             f"does: {gemm}")
+    if jobs.get("flash_attention", {}).get("status") != JobStatus.DONE.value:
+        raise AssertionError(f"[serve] the flash retune did not finish: "
+                             f"{jobs}")
+    # on the CPU the plain version's time barely depends on the blocks, so
+    # the heuristic may win there and the swap be a no-op
+    if device.type == "cuda":
+        if not any("flash_attention" in ev["kernels"]
+                   and ev["sources"].get("flash_attention") == "tuned"
+                   for ev in swaps):
+            raise AssertionError(f"[serve] no tuned flash swap: {swaps}")
+        _check_launched(launches, ["flash_attention"], "[serve]")
+    return record
+
+
 def _bound(ops, nbytes):
     t_ops = ops / H100_SXM.peak_f32_flops
     t_bytes = nbytes / H100_SXM.hbm_bw
@@ -1723,6 +2035,8 @@ def main(argv=None):
                 16, tmp)),
             ("dtune", lambda: phase_dtune(main_shape, device, tmp)),
             ("online", lambda: phase_online(online_shape, device, tmp)),
+            ("serve", lambda: phase_serve(device, tmp,
+                                          full=not args.rehearse)),
             # after the searches, which build their own configurations
             ("build_space", lambda: phase_build_space(device))]:
         t0 = time.perf_counter()

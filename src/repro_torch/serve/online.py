@@ -35,8 +35,8 @@ on meanwhile, unlocked.  A job resolves its profile to the tuner's own
 :class:`~repro_torch.core.profiles.DeviceProfile` when the names match,
 so a profile read from the card at run time keeps its limits.
 
-The serve engine itself is not ported yet (ROADMAP.md, Queue 1); this
-module needs only :mod:`repro_torch.core` and is driven directly.
+This module needs only :mod:`repro_torch.core`: the serve engine
+(:mod:`repro_torch.serve.engine`) drives it, and so can any caller.
 """
 
 from __future__ import annotations

@@ -5,6 +5,7 @@ import ast
 import importlib
 import os
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -139,3 +140,37 @@ def test_flash_attention_on_cuda_tensors_without_a_card_raises(no_gpu,
         with pytest.raises(RuntimeError, match="CUDA"):
             fa_pkg.flash_attention(q, q, q)       # config from the registry
     assert fa_mod.LAUNCHES == before
+
+
+def test_models_need_the_card_unless_asked_for_the_cpu(no_gpu):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_cache, init_model, params_from_numpy
+
+    cfg = get_config("granite-3-2b", smoke=True)
+    for call in (lambda: init_model(cfg, 0), lambda: init_cache(cfg, 1, 8),
+                 lambda: params_from_numpy({"w": np.zeros(2, np.float32)})):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    params = init_model(cfg, 0, "cpu")
+    assert params["embed"].device.type == "cpu"
+    assert init_cache(cfg, 1, 8, "cpu")["blocks"]["k"].device.type == "cpu"
+
+
+def test_serve_engine_and_launcher_need_the_card(no_gpu):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serve import BucketedServeEngine, ServeEngine
+
+    cfg = get_config("granite-3-2b", smoke=True)
+    with FakeTensorMode():
+        params = {"embed": torch.empty(cfg.vocab_size, cfg.d_model,
+                                       device="cuda")}
+    for engine in (ServeEngine, BucketedServeEngine):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            engine(cfg, params, online_tune=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launcher.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launcher.main(["--device", "cuda:0"])
