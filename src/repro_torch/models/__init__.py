@@ -1,8 +1,7 @@
-"""Model zoo: the unified decoder, for the dense, VLM and audio families.
+"""Model zoo: the unified decoder covering all ten architectures.
 
-The same exports as the JAX package's ``repro.models``, less what waits:
-the loss (``cross_entropy``, ``loss_fn``) comes with training, and the
-expert, latent-attention and state-space families with their own modules
+The same exports as the JAX package's ``repro.models``, less the loss
+(``cross_entropy``, ``loss_fn``), which comes with training
 (ROADMAP.md, Queue 1).  ``params_from_numpy`` carries a JAX parameter
 tree over.
 """

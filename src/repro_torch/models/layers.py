@@ -144,6 +144,16 @@ def _chunked_attention(q, k, v, *, q_positions, k_positions,
     return acc / denom
 
 
+def write_clamped(buf: torch.Tensor, val: torch.Tensor,
+                  start: int) -> torch.Tensor:
+    """Write ``val`` into ``buf`` along dim 1 at ``start``, in place, and
+    return ``buf``.  Like ``lax.dynamic_update_slice`` the start clamps to
+    the buffer: a write past the end lands on the last rows."""
+    at = min(max(int(start), 0), buf.shape[1] - val.shape[1])
+    buf[:, at:at + val.shape[1]] = val.to(buf.dtype)
+    return buf
+
+
 def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                     x: torch.Tensor, positions: torch.Tensor,
                     cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -199,11 +209,9 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         new_cache = None
     else:
         # decode: S == 1; insert k/v at cache_pos, attend over the buffer
-        ck, cv = cache["k"], cache["v"]
+        ck = write_clamped(cache["k"], k, cache_pos)
+        cv = write_clamped(cache["v"], v, cache_pos)
         T = ck.shape[1]
-        at = min(max(int(cache_pos), 0), T - S)
-        ck[:, at:at + S] = k.to(ck.dtype)
-        cv[:, at:at + S] = v.to(cv.dtype)
         k_positions = torch.arange(T, dtype=torch.int32,
                                    device=x.device).expand(B, T)
         valid = torch.full((B,), int(cache_pos) + 1, dtype=torch.int32,

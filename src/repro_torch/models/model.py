@@ -1,15 +1,15 @@
-"""Decoder assembly: param trees, forward, decode — dense, VLM and audio.
+"""Decoder assembly: param trees, forward, decode — all families.
 
 The layer stack keeps the JAX package's stacked ``(L, ...)`` parameters
-and runs a Python loop over their layers where JAX has ``lax.scan``.
+and runs a Python loop over their layers where JAX has ``lax.scan``
+(heterogeneous stacks — MoE leading dense layers, Zamba2 super-blocks
+around one weight-shared attention block — are segmented as there).
 ``RunConfig`` carries the execution knobs of the JAX package field for
 field, so derived configs and memo keys match; ``scan_blocks`` and
 ``remat`` change no value here (``remat`` gets its meaning with training).
-
-The families with experts, latent attention (MLA) or state-space blocks
-(``moe``, ``ssm``, ``hybrid``, ``use_mla``) are later slices: every entry
-point raises ``NotImplementedError`` for them rather than run them as
-dense.  The loss (``loss_fn``/``cross_entropy``) comes with training.
+The loss (``loss_fn``/``cross_entropy``) comes with training; the MoE
+families' ``mtp`` tree is built so a JAX tree carries over whole, and
+nothing here reads it.
 """
 
 from __future__ import annotations
@@ -22,8 +22,11 @@ import torch
 from .config import ModelConfig
 from .layers import (apply_attention, apply_mlp, attention_cache_defs,
                      attention_defs, mlp_defs, norm_defs, rms_norm)
+from .mla import apply_mla, mla_cache_defs, mla_defs
+from .moe import apply_moe, moe_defs
 from .params import (ParamDef, abstract_params, init_params, stack_defs,
                      torch_dtype)
+from .ssm import apply_mamba, mamba_defs, mamba_state_defs
 
 _REMAT = ("none", "full", "dots")
 
@@ -60,37 +63,65 @@ class RunConfig:
 DEFAULT_RUN = RunConfig()
 
 
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "vlm", "audio") or cfg.is_moe \
-            or cfg.use_mla:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            f"{' with experts' if cfg.is_moe else ''}"
-            f"{' with MLA' if cfg.use_mla else ''} is not ported yet "
-            f"(ROADMAP.md, Queue 1: models/moe.py, mla.py, ssm.py)")
-
-
 # ---------------------------------------------------------------------------
 # parameter trees
 # ---------------------------------------------------------------------------
 
-def _attn_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+def _attn_block_defs(cfg: ModelConfig, ffn: str) -> Dict[str, Any]:
     d = cfg.d_model
-    return {"ln1": norm_defs(d), "ln2": norm_defs(d),
-            "attn": attention_defs(cfg), "mlp": mlp_defs(cfg)}
+    block: Dict[str, Any] = {"ln1": norm_defs(d), "ln2": norm_defs(d)}
+    block["attn"] = mla_defs(cfg) if cfg.use_mla else attention_defs(cfg)
+    if ffn == "dense":
+        block["mlp"] = mlp_defs(cfg)
+    elif ffn == "moe":
+        block["moe"] = moe_defs(cfg)
+    else:
+        raise ValueError(ffn)
+    return block
+
+
+def _mamba_block_defs(cfg: ModelConfig) -> Dict[str, Any]:
+    return {"ln": norm_defs(cfg.d_model), "mamba": mamba_defs(cfg)}
 
 
 def model_defs(cfg: ModelConfig) -> Dict[str, Any]:
-    _check_ported(cfg)
     d, V = cfg.d_model, cfg.vocab_size
     defs: Dict[str, Any] = {
         "embed": ParamDef((V, d), ("vocab", "embed"), init="normal",
                           scale=0.02),
         "final_norm": norm_defs(d),
-        "blocks": stack_defs(_attn_block_defs(cfg), cfg.num_layers),
     }
     if not cfg.tie_embeddings:
         defs["head"] = ParamDef((d, V), ("embed", "vocab"))
+
+    if cfg.family == "ssm":
+        defs["blocks"] = stack_defs(_mamba_block_defs(cfg), cfg.num_layers)
+    elif cfg.family == "hybrid":
+        n_mamba, n_attn, _ = cfg.layer_plan()
+        per = cfg.hybrid_mamba_per_attn
+        rem = n_mamba - n_attn * per
+        defs["super_mambas"] = stack_defs(
+            stack_defs(_mamba_block_defs(cfg), per), n_attn)
+        defs["shared_attn"] = _attn_block_defs(cfg, "dense")   # weight-shared
+        if rem:
+            defs["tail_mambas"] = stack_defs(_mamba_block_defs(cfg), rem)
+    elif cfg.is_moe:
+        n_dense = cfg.moe_first_dense
+        if n_dense:
+            defs["dense_blocks"] = stack_defs(
+                _attn_block_defs(cfg, "dense"), n_dense)
+        defs["moe_blocks"] = stack_defs(_attn_block_defs(cfg, "moe"),
+                                        cfg.num_layers - n_dense)
+        if cfg.mtp_depth:
+            # read only by the multi-token-prediction loss (training)
+            defs["mtp"] = {
+                "proj": ParamDef((2 * d, d), (None, "embed")),
+                "block": _attn_block_defs(cfg, "moe"),
+                "norm": norm_defs(d),
+            }
+    else:  # dense / vlm / audio
+        defs["blocks"] = stack_defs(_attn_block_defs(cfg, "dense"),
+                                    cfg.num_layers)
     return defs
 
 
@@ -106,29 +137,52 @@ def abstract_model(cfg: ModelConfig):
     return abstract_params(model_defs(cfg), cfg.param_dtype)
 
 
-def _layers(stacked: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+def _layers(stacked: Any) -> List[Any]:
     """Per-layer views of a stacked ``(L, ...)`` tree, one unbind a leaf."""
     if isinstance(stacked, torch.Tensor):
         return list(stacked.unbind(0))
-    per = {k: _layers(v, n) for k, v in stacked.items()}
+    per = {k: _layers(v) for k, v in stacked.items()}
+    n = len(next(iter(per.values())))
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
 
 
+def _stack(trees: List[Any]) -> Any:
+    """The stacked ``(L, ...)`` tree of per-layer trees (new tensors)."""
+    if isinstance(trees[0], torch.Tensor):
+        return torch.stack(trees, dim=0)
+    return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+
+
 # ---------------------------------------------------------------------------
-# block body
+# block bodies
 # ---------------------------------------------------------------------------
 
 def _attn_block(cfg: ModelConfig, run: RunConfig, p, x, positions,
-                cache=None, cache_pos=None):
-    """Returns (x, cache)."""
+                ffn: str, cache=None, cache_pos=None):
+    """Returns (x, aux_loss, cache)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
-    a, new_cache = apply_attention(cfg, p["attn"], h, positions,
-                                   cache=cache, cache_pos=cache_pos,
-                                   attn_chunk=run.attn_chunk,
-                                   mode=run.attn_mode)
+    if cfg.use_mla:
+        a, new_cache = apply_mla(cfg, p["attn"], h, positions,
+                                 cache=cache, cache_pos=cache_pos)
+    else:
+        a, new_cache = apply_attention(cfg, p["attn"], h, positions,
+                                       cache=cache, cache_pos=cache_pos,
+                                       attn_chunk=run.attn_chunk,
+                                       mode=run.attn_mode)
     x = x + a
     h = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h), new_cache
+    if ffn == "dense":
+        out = apply_mlp(p["mlp"], h)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    else:
+        out, aux = apply_moe(cfg, p["moe"], h, impl=run.moe_impl)
+    return x + out, aux, new_cache
+
+
+def _mamba_block(cfg: ModelConfig, p, x, state=None):
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    m, new_state = apply_mamba(cfg, p["mamba"], h, state=state)
+    return x + m, new_state
 
 
 # ---------------------------------------------------------------------------
@@ -173,18 +227,50 @@ def _logits(cfg: ModelConfig, params, x,
                         rms_norm(x, params["final_norm"], cfg.norm_eps), run)
 
 
+def _forward_mambas(cfg: ModelConfig, stacked, x):
+    for p in _layers(stacked):
+        x, _ = _mamba_block(cfg, p, x)
+    return x
+
+
+def _forward_attns(cfg: ModelConfig, run: RunConfig, stacked, x, positions,
+                   ffn: str, aux):
+    for p in _layers(stacked):
+        x, a, _ = _attn_block(cfg, run, p, x, positions, ffn)
+        aux = aux + a
+    return x, aux
+
+
 def forward_hidden(cfg: ModelConfig, params, batch,
                    run: RunConfig = DEFAULT_RUN
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward up to (but excluding) the LM head.
 
-    Returns (hidden (B,S,d) after final norm, aux_loss scalar)."""
-    _check_ported(cfg)
+    Returns (hidden (B,S,d) after final norm, aux_loss scalar: the MoE
+    layers' load-balance losses summed)."""
     run.remat_policy()
     x, positions = embed_inputs(cfg, params, batch)
-    for p in _layers(params["blocks"], cfg.num_layers):
-        x, _ = _attn_block(cfg, run, p, x, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    if cfg.family == "ssm":
+        x = _forward_mambas(cfg, params["blocks"], x)
+    elif cfg.family == "hybrid":
+        for pm in _layers(params["super_mambas"]):
+            x = _forward_mambas(cfg, pm, x)
+            x, a, _ = _attn_block(cfg, run, params["shared_attn"], x,
+                                  positions, "dense")
+            aux = aux + a
+        if "tail_mambas" in params:
+            x = _forward_mambas(cfg, params["tail_mambas"], x)
+    elif cfg.is_moe:
+        if "dense_blocks" in params:
+            x, aux = _forward_attns(cfg, run, params["dense_blocks"], x,
+                                    positions, "dense", aux)
+        x, aux = _forward_attns(cfg, run, params["moe_blocks"], x,
+                                positions, "moe", aux)
+    else:
+        x, aux = _forward_attns(cfg, run, params["blocks"], x, positions,
+                                "dense", aux)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -201,14 +287,38 @@ def forward(cfg: ModelConfig, params, batch,
 # ---------------------------------------------------------------------------
 
 def cache_defs(cfg: ModelConfig, batch: int, max_len: int) -> Dict[str, Any]:
-    _check_ported(cfg)
-    return {"blocks": stack_defs(attention_cache_defs(cfg, batch, max_len),
-                                 cfg.num_layers)}
+    if cfg.family == "ssm":
+        return {"blocks": stack_defs(mamba_state_defs(cfg, batch),
+                                     cfg.num_layers)}
+    if cfg.family == "hybrid":
+        n_mamba, n_attn, _ = cfg.layer_plan()
+        per = cfg.hybrid_mamba_per_attn
+        rem = n_mamba - n_attn * per
+        out = {
+            "super_mambas": stack_defs(
+                stack_defs(mamba_state_defs(cfg, batch), per), n_attn),
+            "attn": stack_defs(
+                attention_cache_defs(cfg, batch, max_len), n_attn),
+        }
+        if rem:
+            out["tail_mambas"] = stack_defs(
+                mamba_state_defs(cfg, batch), rem)
+        return out
+    one = (mla_cache_defs(cfg, batch, max_len) if cfg.use_mla
+           else attention_cache_defs(cfg, batch, max_len))
+    if cfg.is_moe:
+        out = {"moe_blocks": stack_defs(
+            one, cfg.num_layers - cfg.moe_first_dense)}
+        if cfg.moe_first_dense:
+            out["dense_blocks"] = stack_defs(one, cfg.moe_first_dense)
+        return out
+    return {"blocks": stack_defs(one, cfg.num_layers)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: "torch.device | str | None" = None):
-    """A zero KV cache on ``device`` (default: the card)."""
+    """A zero decode cache (KV, latent and SSM state) on ``device``
+    (default: the card)."""
     return init_params(cache_defs(cfg, batch, max_len), 0, cfg.param_dtype,
                        device)
 
@@ -217,14 +327,36 @@ def abstract_cache(cfg: ModelConfig, batch: int, max_len: int):
     return abstract_params(cache_defs(cfg, batch, max_len), cfg.param_dtype)
 
 
+def _decode_attns(cfg: ModelConfig, run: RunConfig, stacked, cache, x,
+                  positions, pos: int, ffn: str):
+    """Decode through a stack of attention blocks; their caches are
+    written in place."""
+    for p, c in zip(_layers(stacked), _layers(cache)):
+        x, _, _ = _attn_block(cfg, run, p, x, positions, ffn, cache=c,
+                              cache_pos=pos)
+    return x
+
+
+def _decode_mambas(cfg: ModelConfig, stacked, state, x):
+    """Decode through a stack of Mamba blocks; returns (x, new stacked
+    state), the given state left as it was."""
+    new = []
+    for p, s in zip(_layers(stacked), _layers(state)):
+        x, ns = _mamba_block(cfg, p, x, state=s)
+        new.append(ns)
+    return x, _stack(new)
+
+
 def decode_step(cfg: ModelConfig, params, cache, tokens_or_embeds,
                 pos: int, run: RunConfig = DEFAULT_RUN
                 ) -> Tuple[torch.Tensor, Any]:
     """One decode step.  tokens: (B, 1) int (or (B, 1, d) embeds);
-    pos: the current position.  Returns (logits (B, V), cache); the cache
-    is updated in place, so a second call on the same inputs gives the
-    same answer."""
-    _check_ported(cfg)
+    pos: the current position.  Returns (logits (B, V), new cache).
+
+    KV and latent caches are updated in place (a write at the same
+    position is idempotent); SSM states come back as new tensors and the
+    ones in ``cache`` stay as they were.  So a second call on the same
+    inputs gives the same answer."""
     if cfg.input_mode == "embeddings":
         x = tokens_or_embeds.to(torch_dtype(cfg.param_dtype))
     else:
@@ -232,10 +364,33 @@ def decode_step(cfg: ModelConfig, params, cache, tokens_or_embeds,
     B = x.shape[0]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    L = cfg.num_layers
-    for p, c in zip(_layers(params["blocks"], L),
-                    _layers(cache["blocks"], L)):
-        x, _ = _attn_block(cfg, run, p, x, positions, cache=c, cache_pos=pos)
-    logits = _logits(cfg, params, x, run)[:, 0]
-    return logits, cache
+    new_cache: Dict[str, Any] = {}
 
+    if cfg.family == "ssm":
+        x, new_cache["blocks"] = _decode_mambas(cfg, params["blocks"],
+                                                cache["blocks"], x)
+    elif cfg.family == "hybrid":
+        new_super = []
+        for pm, sm, ca in zip(_layers(params["super_mambas"]),
+                              _layers(cache["super_mambas"]),
+                              _layers(cache["attn"])):
+            x, ns = _decode_mambas(cfg, pm, sm, x)
+            x, _, _ = _attn_block(cfg, run, params["shared_attn"], x,
+                                  positions, "dense", cache=ca,
+                                  cache_pos=pos)
+            new_super.append(ns)
+        new_cache["super_mambas"] = _stack(new_super)
+        new_cache["attn"] = cache["attn"]
+        if "tail_mambas" in params:
+            x, new_cache["tail_mambas"] = _decode_mambas(
+                cfg, params["tail_mambas"], cache["tail_mambas"], x)
+    else:
+        stacks = ([("dense_blocks", "dense"), ("moe_blocks", "moe")]
+                  if cfg.is_moe else [("blocks", "dense")])
+        for name, ffn in stacks:
+            if name in params:
+                x = _decode_attns(cfg, run, params[name], cache[name], x,
+                                  positions, pos, ffn)
+                new_cache[name] = cache[name]
+    logits = _logits(cfg, params, x, run)[:, 0]
+    return logits, new_cache

@@ -37,11 +37,11 @@ from repro_torch.models.model import (RunConfig, _head_logits,  # noqa: E402
                                       decode_step, forward, init_cache,
                                       init_model, model_defs)
 
-#: the architectures without experts, latent attention or SSM blocks
+#: every architecture: dense, VLM, audio, MoE (with MLA for deepseek),
+#: SSM and hybrid
 PORTED = ("mistral-large-123b", "qwen2.5-32b", "granite-34b", "granite-3-2b",
-          "llava-next-34b", "musicgen-medium")
-#: the rest wait for models/moe.py, mla.py and ssm.py
-UNPORTED = ("deepseek-v3-671b", "kimi-k2-1t-a32b", "zamba2-7b", "mamba2-130m")
+          "llava-next-34b", "musicgen-medium", "deepseek-v3-671b",
+          "kimi-k2-1t-a32b", "zamba2-7b", "mamba2-130m")
 
 F32_TOL = 1e-5
 BF16_TOL = 2e-2
@@ -329,26 +329,35 @@ def _ref_decode(ref_cfg):
                                        ("bfloat16", BF16_TOL)])
 @pytest.mark.parametrize("arch", PORTED)
 def test_forward_and_decode_match_jax(arch, dtype, tol):
+    """In bf16 the JAX side runs op by op (``jax.disable_jit``), as the
+    port does: under jit XLA fuses elementwise chains and rounds to bf16
+    only at a fusion's edge, which alone moves the zamba2 smoke logits
+    past the bf16 bound over its nine layers."""
     ref_cfg, ref_p, cfg, p = _pair(arch, dtype)
     rng = np.random.default_rng(8)
     jx, tx = _inputs(cfg, rng, (B, S))
-    ref, ref_aux = jax.jit(lambda p, b: ref_models.forward(ref_cfg, p, b))(
-        ref_p, {_key(cfg): jx})
-    ours, aux = forward(cfg, p, {_key(cfg): tx})
-    assert ours.shape == (B, S, cfg.vocab_size)
-    assert ours.dtype == port_params.torch_dtype(dtype)
-    assert _rel(ours, ref) < tol
-    assert float(aux) == float(ref_aux) == 0.0
+    with jax.disable_jit(dtype == "bfloat16"):
+        ref, ref_aux = jax.jit(
+            lambda p, b: ref_models.forward(ref_cfg, p, b))(
+                ref_p, {_key(cfg): jx})
+        ours, aux = forward(cfg, p, {_key(cfg): tx})
+        assert ours.shape == (B, S, cfg.vocab_size)
+        assert ours.dtype == port_params.torch_dtype(dtype)
+        assert _rel(ours, ref) < tol
+        if cfg.is_moe:      # the MoE layers' load-balance losses, summed
+            assert abs(float(aux) - float(ref_aux)) <= tol * float(ref_aux)
+        else:
+            assert float(aux) == float(ref_aux) == 0.0
 
-    ref_cache = ref_models.init_cache(ref_cfg, B, 8)
-    cache = init_cache(cfg, B, 8, "cpu")
-    step = _ref_decode(ref_cfg)
-    jt, tt = _inputs(cfg, rng, (B, 3))
-    for pos in range(3):
-        ref, ref_cache = step(ref_p, ref_cache, jt[:, pos:pos + 1], pos)
-        ours, cache = decode_step(cfg, p, cache, tt[:, pos:pos + 1], pos)
-        assert ours.shape == (B, cfg.vocab_size)
-        assert _rel(ours, ref) < tol, pos
+        ref_cache = ref_models.init_cache(ref_cfg, B, 8)
+        cache = init_cache(cfg, B, 8, "cpu")
+        step = _ref_decode(ref_cfg)
+        jt, tt = _inputs(cfg, rng, (B, 3))
+        for pos in range(3):
+            ref, ref_cache = step(ref_p, ref_cache, jt[:, pos:pos + 1], pos)
+            ours, cache = decode_step(cfg, p, cache, tt[:, pos:pos + 1], pos)
+            assert ours.shape == (B, cfg.vocab_size)
+            assert _rel(ours, ref) < tol, pos
 
 
 def test_decode_matches_forward():
@@ -404,18 +413,6 @@ def test_tied_embeddings_and_softcap_match_jax():
     ours, _ = forward(cfg, p, {"tokens": tx})
     assert _rel(ours, ref) < F32_TOL
     assert ours.abs().max().item() <= 30.0
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_families_raise(arch):
-    cfg = configs.get_config(arch, smoke=True)
-    for call in (lambda: model_defs(cfg), lambda: init_model(cfg, 0, "cpu"),
-                 lambda: models.cache_defs(cfg, 1, 8),
-                 lambda: init_cache(cfg, 1, 8, "cpu"),
-                 lambda: forward(cfg, {}, {}),
-                 lambda: decode_step(cfg, {}, {}, None, 0)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            call()
 
 
 def test_granite_full_width_two_layers_matches_jax():
@@ -495,6 +492,10 @@ def test_full_param_counts_match_published():
         "granite-3-2b": (2.0e9, 3.2e9),
         "llava-next-34b": (32e9, 36e9),
         "musicgen-medium": (1.0e9, 1.8e9),
+        "deepseek-v3-671b": (640e9, 700e9),
+        "kimi-k2-1t-a32b": (950e9, 1100e9),
+        "zamba2-7b": (4.5e9, 8.5e9),
+        "mamba2-130m": (0.11e9, 0.15e9),
     }
     assert set(expected) == set(PORTED)
     for arch, (lo, hi) in expected.items():
@@ -502,6 +503,10 @@ def test_full_param_counts_match_published():
         assert lo <= n <= hi, f"{arch}: {n/1e9:.2f}B not in [{lo/1e9}-{hi/1e9}]"
     assert models.count_params(model_defs(
         configs.get_config("granite-3-2b"))) == 2_634_201_088
+    assert models.count_params(model_defs(
+        configs.get_config("mamba2-130m"))) == 128_940_480
+    assert models.count_params(model_defs(
+        configs.get_config("zamba2-7b"))) == 5_191_124_496
 
 
 def test_skip_shapes_documented():

@@ -6,7 +6,8 @@
   input type (``IN_BF16``).
 - A wall-clock sample on CUDA times k back-to-back launches after an
   untimed one, k chosen from the warm-up launch, under an exclusive lock
-  on the card (the card is simulated here: host-clock events, no device).
+  on the card (the card is simulated here: events on a clock that only
+  launches advance, so the times are exact; no device).
 - The cost model's stored prices move with the declared cost and the
   kernel's source: a changed ``traffic`` misses the store.
 - One element width, from the shape's ``dtype``, reaches the arguments,
@@ -23,7 +24,6 @@ import fcntl
 import importlib
 import math
 import os
-import time
 
 import numpy as np
 import pytest
@@ -106,35 +106,52 @@ def test_conv_builds_one_library_per_input_type():
 
 # -- wall-clock samples time the card ------------------------------------------
 
-class _HostEvent:
-    """A CUDA event stand-in on the host clock."""
+class _Clock:
+    """The simulated card's clock: integer nanoseconds that only a launch
+    advances, so the times the evaluator reads are exact whatever the
+    host's load."""
 
-    def __init__(self, enable_timing=False):
-        self.t = None
+    def __init__(self):
+        self.ns = 0
+
+
+class _HostEvent:
+    """A CUDA event stand-in that records the simulated card's clock."""
+
+    def __init__(self, clock, enable_timing=False):
+        self.clock = clock
+        self.ns = None
 
     def record(self, stream=None):
-        self.t = time.perf_counter()
+        self.ns = self.clock.ns
 
     def synchronize(self):
         pass
 
     def elapsed_time(self, other):
-        return (other.t - self.t) * 1e3
+        return (other.ns - self.ns) / 1e6
 
 
 @pytest.fixture
-def host_card(monkeypatch, tmp_path):
-    """A simulated card: CUDA events on the host clock, the measurement
-    lock under tmp_path."""
+def clock():
+    return _Clock()
+
+
+@pytest.fixture
+def host_card(monkeypatch, tmp_path, clock):
+    """A simulated card: CUDA events on ``clock``, the measurement lock
+    under tmp_path."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "Event", _HostEvent)
+    monkeypatch.setattr(torch.cuda, "Event",
+                        lambda enable_timing=False: _HostEvent(clock))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     monkeypatch.setattr(ev_mod, "LOCK_DIR", str(tmp_path / "locks"))
     return tmp_path
 
 
-def _launch_spec(calls, launch_s, lock_path=None, held=None):
+def _launch_spec(calls, launch_s, clock, lock_path=None, held=None):
+    """A kernel whose every launch takes exactly ``launch_s`` on ``clock``."""
     def launch():
         calls.append(1)
         if lock_path is not None:
@@ -147,49 +164,47 @@ def _launch_spec(calls, launch_s, lock_path=None, held=None):
                 held.append(True)
             finally:
                 os.close(fd)
-        deadline = time.perf_counter() + launch_s
-        while time.perf_counter() < deadline:
-            pass
+        clock.ns += round(launch_s * 1e9)
         return torch.zeros(1)
 
     return KernelSpec(name="probe", build=lambda cfg: launch,
                       make_args=lambda rng: ())
 
 
-def test_cuda_samples_time_back_to_back_launches(host_card):
+def test_cuda_samples_time_back_to_back_launches(host_card, clock):
     calls = []
     ev = WallClockEvaluator(repeats=3, verify_outputs=False, device="cuda")
-    spec = _launch_spec(calls, 2e-4)
+    spec = _launch_spec(calls, 2e-4, clock)
     m = ev.measure(spec, {}, ev.prepare(spec, {}))
     k = int(m.detail["launches_per_sample"])
-    # four back-to-back launches of 2e-4 s (and the host's overhead) pick
-    # k so that k launches span the 1 ms window
-    assert 2 <= k <= math.ceil(ev.WINDOW_S / 2e-4)
+    # four back-to-back launches of 2e-4 s pick k so that k launches span
+    # the 1 ms window
+    assert k == math.ceil(ev.WINDOW_S / 2e-4) == 5
     # first launch + (one untimed + four timed) to pick k + (one untimed +
     # k timed) a sample
     assert len(calls) == 1 + (1 + ev.PROBE_LAUNCHES) + 3 * (k + 1)
     # a sample is one launch's time, not the window's
-    assert 2e-4 <= m.time_s < 2 * 2e-4 + 1e-4
-    assert len(m.metrics.samples) == 3
+    assert m.time_s == 2e-4
+    assert m.metrics.samples == (2e-4,) * 3
 
 
-def test_cuda_launches_per_sample_bounds(host_card):
+def test_cuda_launches_per_sample_bounds(host_card, clock):
     calls = []
     ev = WallClockEvaluator(repeats=2, verify_outputs=False, device="cuda")
-    slow = _launch_spec(calls, 3e-3)
+    slow = _launch_spec(calls, 3e-3, clock)
     assert ev.measure(slow, {}).detail["launches_per_sample"] == 1
     ev.WINDOW_S = 10.0                       # no launch fills this window
-    fast = _launch_spec(calls, 0.0)
+    fast = _launch_spec(calls, 0.0, clock)
     assert (ev.measure(fast, {}).detail["launches_per_sample"]
             == ev.MAX_LAUNCHES)
 
 
-def test_cuda_measurement_holds_the_cards_lock(host_card):
+def test_cuda_measurement_holds_the_cards_lock(host_card, clock):
     calls, held = [], []
     ev = WallClockEvaluator(repeats=2, verify_outputs=False, device="cuda")
     path = ev.lock_path()
     assert path == os.path.join(str(host_card / "locks"), "cuda0.lock")
-    spec = _launch_spec(calls, 1e-4, lock_path=path, held=held)
+    spec = _launch_spec(calls, 1e-4, clock, lock_path=path, held=held)
     prepared = ev.prepare(spec, {})          # the build takes no lock
     assert not os.path.exists(path)
     ev.measure(spec, {}, prepared)
@@ -204,7 +219,7 @@ def test_cuda_measurement_holds_the_cards_lock(host_card):
 def test_cpu_samples_stay_one_call_each():
     calls = []
     ev = WallClockEvaluator(repeats=4, verify_outputs=False, device="cpu")
-    spec = _launch_spec(calls, 0.0)
+    spec = _launch_spec(calls, 0.0, _Clock())
     m = ev.measure(spec, {})
     assert len(calls) == 1 + 4 and "launches_per_sample" not in m.detail
 

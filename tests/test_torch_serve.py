@@ -456,15 +456,17 @@ def _requests(make, vocab):
             for i in range(5)]
 
 
-def test_engine_outputs_equal_the_jax_engine(tmp_path):
+@pytest.mark.parametrize("arch", ["granite-3-2b", "mamba2-130m", "zamba2-7b",
+                                  "deepseek-v3-671b"])
+def test_engine_outputs_equal_the_jax_engine(tmp_path, arch):
     """The same float32 weights, 5 requests over 2 slots: refill, the
     global decode position (a request placed mid-run attends to what the
-    slot's previous occupant wrote) and max_steps truncation and resume
-    all give the JAX engine's greedy tokens."""
+    slot's previous occupant wrote, and inherits its SSM state) and
+    max_steps truncation and resume all give the JAX engine's greedy
+    tokens, for a dense, an SSM, a hybrid and an MoE/MLA model."""
     ref_cfg = dataclasses.replace(
-        ref_configs.get_config("granite-3-2b", smoke=True),
-        param_dtype="float32")
-    cfg = dataclasses.replace(get_config("granite-3-2b", smoke=True),
+        ref_configs.get_config(arch, smoke=True), param_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch, smoke=True),
                               param_dtype="float32")
     ref_p = ref_models.init_model(ref_cfg, jax.random.PRNGKey(5))
     params = params_from_numpy(jax.tree_util.tree_map(np.asarray, ref_p),
