@@ -86,7 +86,17 @@ each printing its own lines:
      serve, the engine's resolutions with provenance, then bf16 against
      float32 (8e-2; the SSM families SERVE_SSM_BF16_TOL) and float32
      decode against forward (1e-4; MoE at capacity factor 8) on the same
-     weights, upcast leaf by leaf; then build_space: every fourth distinct conv build of the extended space
+     weights, upcast leaf by leaf; then train: the training path
+     (loss_fn -> make_train_step -> Trainer), which launches none of the
+     kernels: granite-3-2b's loss and gradients at 2 layers in float32 on
+     the card against the CPU; all 40 layers in bf16 trained 20 steps at
+     8 x 256 tokens through Trainer (step ms from CUDA events, one traced
+     step, the bound, an async full-depth checkpoint verified); remat,
+     ce_chunk and microbatch variants on the first batch with their peak
+     memory; a crash at step 5 restored from step 4 at 2 layers under
+     deterministic algorithms, equal to an uninterrupted run; the
+     launcher (--full, 4 steps) and mamba2-130m (10 steps); then
+     build_space: every fourth distinct conv build of the extended space
      at 3x3 (93 of its 372), 16 nvcc at a time, with ptxas's
      registers and spills (none may spill; after the searches, so their
      nvcc time stays their own)
@@ -165,13 +175,21 @@ from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E40
                                         gemm_reference, heuristic_config,
                                         lookup_config, make_matmul, matmul,
                                         micro_tile, smem_footprint)
+from repro_torch.data import DataConfig, to_device  # noqa: E402
+from repro_torch.dist.step import make_train_step  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
-from repro_torch.models import (RunConfig, count_params,  # noqa: E402
-                                decode_step, forward, init_cache, init_model,
-                                model_defs)
+from repro_torch.launch import train as train_launcher  # noqa: E402
+from repro_torch.models import (RunConfig, abstract_model,  # noqa: E402
+                                count_params, decode_step, forward,
+                                init_cache, init_model, loss_fn, model_defs,
+                                params_from_numpy, tree_leaves, tree_map)
+from repro_torch.optim import (OptimConfig, OptState,  # noqa: E402
+                               abstract_state)
+from repro_torch.optim import update_ as adamw_update_  # noqa: E402
 from repro_torch.serve import (BackgroundTuner, ConfigSlot,  # noqa: E402
                                JobStatus, OnlineTuneConfig, ServeEngine,
                                submit_for_resolutions)
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 from repro_torch.tune import tune_kernel, tune_kernel_distributed  # noqa: E402
 mm_kernel = importlib.import_module("repro_torch.kernels.matmul.matmul")
 
@@ -1517,18 +1535,6 @@ SERVE_TRAFFIC = (8, 4, 16, 256)
 PROFILED_STEP = 5
 
 
-def _tree_leaves(tree):
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [t for v in tree.values() for t in _tree_leaves(v)]
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, torch.Tensor):
-        return fn(tree)
-    return {k: _tree_map(fn, v) for k, v in tree.items()}
-
-
 def _rel_err(x, ref):
     """Largest |x - ref| / max|ref|."""
     x, ref = x.double(), ref.double()
@@ -1583,7 +1589,7 @@ def _serve_parity(cfg, params, device, rng, in_place=False):
                 _upcast_in_place(params, device)
                 params32 = params
             else:
-                params32 = _tree_map(lambda t: t.float(), params)
+                params32 = tree_map(lambda t: t.float(), params)
             full, _ = forward(cfg32, params32, {"tokens": full_toks})
             parity = _rel_err(torch.stack(
                 _decode_steps(cfg32, params32, full_toks, device), dim=1),
@@ -1660,7 +1666,7 @@ def _served_model(cfg, device, what):
     params = init_model(cfg, torch.Generator(device=device).manual_seed(0),
                         device)
     sync(device)
-    leaves = _tree_leaves(params)
+    leaves = tree_leaves(params)
     n_params = sum(t.numel() for t in leaves)
     weight_bytes = sum(t.numel() * t.element_size() for t in leaves)
     if n_params != count_params(model_defs(cfg)):
@@ -1935,6 +1941,463 @@ def phase_serve_families(device, full):
             for arch, changes, via_launcher in SERVE_FAMILIES]
 
 
+# ---------------------------------------------------------------------------
+# [train]: the training path (loss_fn -> make_train_step -> Trainer)
+# ---------------------------------------------------------------------------
+
+#: part 2: the launcher's data (seq_len, global_batch), AdamW and steps
+TRAIN_DATA = (256, 8)
+TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, total_steps=20)
+TRAIN_STEPS = 20
+#: part 2: the loss over its 20 steps must fall by at least this much
+#: (nats; set before the first run on the card, PERF.md §6)
+TRAIN_LOSS_DROP = 2.0
+#: part 1, float32 with TF32 off: the loss's relative error and each
+#: gradient leaf's error over its largest |value|, card against CPU
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+#: part 3: each variant's loss against the default's, relative
+#: (tests/test_models_smoke.py::test_run_config_variants)
+TRAIN_VARIANT_TOL = 2e-3
+#: part 4: resumed losses and parameters against the uninterrupted run's,
+#: relative (tests/test_fault_tolerance.py)
+TRAIN_RESUME_RTOL = 1e-5
+
+
+def _grads(cfg, params, batch, run=None):
+    """(loss, metrics, grads) of ``loss_fn`` on ``params``' leaves."""
+    live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = loss_fn(cfg, live, batch, run or RunConfig())
+    grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                materialize_grads=True)
+    return loss.detach(), {k: v.item() for k, v in metrics.items()}, grads
+
+
+def _train_batch(cfg, shape, device, seed):
+    rng = np.random.default_rng(seed)
+    return {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, shape)
+                                .astype(np.int32)).to(device)
+            for k in ("tokens", "labels")}
+
+
+def _train_parity(device, full):
+    """Part 1: loss_fn and its gradients on the card and on the CPU, the
+    same float32 weights carried over by params_from_numpy, TF32 off."""
+    cfg = dataclasses.replace(get_model_config("granite-3-2b",
+                                               smoke=not full),
+                              num_layers=2, param_dtype="float32")
+    cpu = init_model(cfg, 0, "cpu")
+    dev = params_from_numpy(tree_map(lambda t: t.numpy(), cpu), device)
+    batch = _train_batch(cfg, (2, 64), "cpu", seed=0)
+    old_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        l_cpu, _, g_cpu = _grads(cfg, cpu, batch)
+        l_dev, _, g_dev = _grads(cfg, dev, {k: v.to(device)
+                                            for k, v in batch.items()})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = old_tf32
+    rec = {"config": cfg.name, "layers": cfg.num_layers, "batch": [2, 64],
+           "dtype": "float32", "loss_cpu": l_cpu.item(),
+           "loss_card": l_dev.item(),
+           "loss_rel_err": abs(l_dev.item() - l_cpu.item()) / abs(
+               l_cpu.item()),
+           "grad_rel_err": max(_rel_err(a.cpu(), b)
+                               for a, b in zip(g_dev, g_cpu))}
+    del cpu, dev, g_cpu, g_dev
+    if rec["loss_rel_err"] > TRAIN_LOSS_TOL \
+            or rec["grad_rel_err"] > TRAIN_GRAD_TOL:
+        raise AssertionError(f"[train] card against CPU: {rec}")
+    return rec
+
+
+def train_bound_ms(cfg, tokens, seq_len, batch):
+    """The least time one AdamW train step of ``cfg`` could take on the
+    card: 6 FLOP a non-embedding parameter a token plus attention's
+    unmasked S^2 products (forward and backward) at the bf16 tensor-core
+    rate, then the optimizer's bytes (bf16 parameters read and written,
+    float32 moments read and written, bf16 gradients read twice: 24 B a
+    parameter) at the memory rate.  ``(compute ms, optimizer ms)``."""
+    n = count_params(model_defs(cfg))
+    matmul_params = n - cfg.vocab_size * cfg.d_model      # not the gather
+    attn = 12 * batch * cfg.num_heads * seq_len ** 2 \
+        * cfg.resolved_head_dim * cfg.num_layers
+    flops = 6 * matmul_params * tokens + attn
+    opt_bytes = 24 * n
+    return (flops / H100_SXM.peak_bf16_tensor_flops * 1e3,
+            opt_bytes / H100_SXM.hbm_bw * 1e3)
+
+
+def step_traffic(cfg, seq_len, batch):
+    """What one eager train step of ``cfg`` asks of the card, counted on
+    the ``meta`` device (no storage, no card): the operations that launch
+    a kernel (views excluded) and the bytes they read and write, for the
+    model's forward and backward and for the AdamW update."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    views = {"view", "_unsafe_view", "unbind", "t", "transpose", "expand",
+             "slice", "select", "permute", "detach", "alias", "unsqueeze",
+             "squeeze", "as_strided", "split", "lift_fresh"}
+
+    def nbytes(x):
+        if isinstance(x, torch.Tensor):
+            return x.numel() * x.element_size()
+        if isinstance(x, (list, tuple)):
+            return sum(nbytes(y) for y in x)
+        return 0
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = self.bytes = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if func.overloadpacket.__name__ not in views:
+                self.ops += 1
+                self.bytes += nbytes(args) + nbytes(out)
+            return out
+
+    params = abstract_model(cfg)
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    state = lambda: OptState(*abstract_state(OptimConfig(), params)[:2],
+                             count=meta((), torch.int32))
+    whole, opt = Count(), Count()
+    with whole:
+        make_train_step(cfg, opt_cfg=OptimConfig())(
+            params, state(), {k: meta((batch, seq_len), torch.int32)
+                              for k in ("tokens", "labels")})
+    with opt:
+        adamw_update_(OptimConfig(), tree_map(
+            lambda p: meta(p.shape, p.dtype), params), state(), params)
+    model = Count()
+    model.ops, model.bytes = whole.ops - opt.ops, whole.bytes - opt.bytes
+    return {"model_ops": model.ops, "model_gb": model.bytes / 1e9,
+            "optimizer_ops": opt.ops, "optimizer_gb": opt.bytes / 1e9}
+
+
+def _trainer(cfg, device, ckpt_dir, seq_len, batch, steps, ckpt_every,
+             ckpt_async=True, seed=0, lr=TRAIN_OPT["lr"]):
+    return Trainer(cfg, DataConfig(seq_len=seq_len, global_batch=batch,
+                                   vocab_size=cfg.vocab_size, seed=seed),
+                   TrainerConfig(total_steps=steps, ckpt_every=ckpt_every,
+                                 ckpt_dir=ckpt_dir, ckpt_async=ckpt_async,
+                                 log_every=10 ** 9),
+                   opt_cfg=OptimConfig(**dict(TRAIN_OPT, total_steps=steps,
+                                               lr=lr)),
+                   device=device)
+
+
+def _timed_steps(trainer, steps, device, profile_last):
+    """Drive ``trainer`` one step at a time: the step's ms from CUDA events
+    at each step boundary (host clock on the CPU), the last step traced by
+    torch.profiler when ``profile_last``.  Returns (ms by step, trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    ms, prof = [], None
+    for i in range(steps):
+        if profile_last and i == steps - 1 and device.type == "cuda":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                trainer.train(steps=1)
+                sync(device)
+            continue
+        if device.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            trainer.train(steps=1)          # ends in a host read
+            b.record()
+            b.synchronize()
+            ms.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            trainer.train(steps=1)
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return ms, prof
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _train_full(device, tmp, full, ckpt_full):
+    """Part 2: granite-3-2b at full depth, bf16, through Trainer; an async
+    checkpoint at the last step when ``ckpt_full``.  Returns (trainer,
+    record): the trainer is part 3's model."""
+    cfg = get_model_config("granite-3-2b", smoke=not full)
+    seq, gb = TRAIN_DATA if full else (32, 2)
+    ckpt_dir = os.path.join(tmp, "train-full")
+    trainer = _trainer(cfg, device, ckpt_dir, seq, gb, TRAIN_STEPS,
+                       ckpt_every=10 ** 9)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    trainer.init_state()
+    sync(device)
+    resident = (torch.cuda.memory_allocated() if device.type == "cuda"
+                else 0)
+    t0 = time.perf_counter()
+    ms, prof = _timed_steps(trainer, TRAIN_STEPS, device, profile_last=True)
+    wall = time.perf_counter() - t0
+    losses = [h["loss"] for h in trainer.history]
+    med = float(np.median(ms[1:]))              # the first step warms up
+    compute_ms, opt_ms = train_bound_ms(cfg, seq * gb, seq, gb)
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "params": count_params(model_defs(cfg)), "dtype": cfg.param_dtype,
+           "seq_len": seq, "global_batch": gb, "steps": TRAIN_STEPS,
+           "losses": losses, "step_ms": ms, "step_ms_median": med,
+           "first_step_ms": ms[0], "wall_s": wall,
+           "tokens_per_s": seq * gb / med * 1e3,
+           "bound_ms": compute_ms + opt_ms, "bound_compute_ms": compute_ms,
+           "bound_optimizer_ms": opt_ms,
+           "bound_share": (compute_ms + opt_ms) / med,
+           "resident_gib": resident / 2 ** 30,
+           "traffic": step_traffic(cfg, seq, gb)}
+    if device.type == "cuda":
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        kernels, copies, us = _device_ops(prof)
+        rec.update({"kernels_per_step": kernels, "copies_per_step": copies,
+                    "device_ms_per_step": us / 1e3,
+                    "device_busy_share": us / 1e3 / med})
+    if ckpt_full:
+        t0 = time.perf_counter()
+        trainer.save(block=False)
+        rec["ckpt_host_s"] = time.perf_counter() - t0
+        trainer.ckpt.wait()
+        rec["ckpt_s"] = time.perf_counter() - t0
+        rec["ckpt_bytes"] = _dir_bytes(trainer.ckpt._path(TRAIN_STEPS))
+        t0 = time.perf_counter()
+        rec["ckpt_verify"] = trainer.ckpt.verify(TRAIN_STEPS)
+        rec["ckpt_verify_s"] = time.perf_counter() - t0
+        rec["ckpt_step"] = trainer.ckpt.latest_step()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[train] a loss is not finite: {losses}")
+    # the margin is for the published config; a rehearsal's smoke config
+    # need only fall
+    min_drop = TRAIN_LOSS_DROP if full else 0.0
+    if not losses[0] - losses[-1] > min_drop:
+        raise AssertionError(f"[train] the loss fell {losses[0]:.4f} -> "
+                             f"{losses[-1]:.4f}, not more than {min_drop}")
+    if ckpt_full and not (rec["ckpt_verify"]
+                          and rec["ckpt_step"] == TRAIN_STEPS):
+        raise AssertionError(f"[train] the step-{TRAIN_STEPS} checkpoint "
+                             f"did not verify: {rec}")
+    return trainer, rec
+
+
+def _peak(device):
+    return (torch.cuda.max_memory_allocated() / 2 ** 30
+            if device.type == "cuda" else None)
+
+
+def _elapsed_ms(fn, device):
+    """(fn's result, its ms): CUDA events on the card, else the host
+    clock."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _train_variants(trainer, device):
+    """Part 3: on the first batch, loss_fn and its gradients under each
+    RunConfig variant against the default: each variant's loss, peak
+    memory and the memory held between its forward and backward passes
+    (first call), and its ms (second call);
+    then one microbatch=2 step through make_train_step, and the AdamW
+    update alone (both update the trainer's state in place, so they come
+    last)."""
+    cfg = trainer.cfg
+    batch = to_device(trainer.source.batch(0), device)
+    out = {}
+    for name, run in (("none", RunConfig()), ("full", RunConfig(remat="full")),
+                      ("dots", RunConfig(remat="dots")),
+                      ("ce_chunk=64", RunConfig(ce_chunk=64))):
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        live = tree_map(lambda t: t.detach().requires_grad_(True),
+                         trainer.params)
+        saved = {}
+
+        def fwd_bwd():
+            loss, _ = loss_fn(cfg, live, batch, run)
+            # what the backward pass will read: the saved activations
+            saved.setdefault("gib", torch.cuda.memory_allocated() / 2 ** 30
+                             if device.type == "cuda" else 0.0)
+            torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                materialize_grads=True)
+            return loss.detach()
+
+        loss = fwd_bwd()            # memory from a cold allocator cache
+        peak = _peak(device)
+        _, ms = _elapsed_ms(fwd_bwd, device)          # time warm
+        del live
+        out[name] = {"loss": loss.item(), "ms": ms, "peak_gib": peak,
+                     "after_forward_gib": saved["gib"]}
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    (_, _, met), ms = _elapsed_ms(lambda: make_train_step(
+        cfg, RunConfig(microbatch=2), trainer.opt_cfg)(
+        trainer.params, trainer.opt_state, batch), device)
+    out["microbatch=2"] = {"loss": met["loss"].item(), "ms": ms,
+                           "peak_gib": _peak(device)}
+    base = out["none"]["loss"]
+    for name, v in out.items():
+        v["rel_err"] = abs(v["loss"] - base) / abs(base)
+    # the update alone, on zero gradients of the parameters' dtypes
+    zeros = tree_map(torch.zeros_like, trainer.params)
+    opt_ms = [_elapsed_ms(lambda: adamw_update_(
+        trainer.opt_cfg, zeros, trainer.opt_state, trainer.params),
+        device)[1] for _ in range(3)]
+    del zeros
+    rec = {"variants": out, "optimizer_ms": opt_ms}
+    bad = {k: v for k, v in out.items() if v["rel_err"] > TRAIN_VARIANT_TOL}
+    if bad:
+        raise AssertionError(f"[train] variants off the default's loss "
+                             f"(limit {TRAIN_VARIANT_TOL}): {bad}")
+    if device.type == "cuda" and not (out["full"]["peak_gib"]
+                                      < out["none"]["peak_gib"]):
+        raise AssertionError(f"[train] remat='full' does not peak lower "
+                             f"than 'none': {out}")
+    return rec
+
+
+def _train_resume(device, tmp, full):
+    """Part 4: 8 steps at full width cut to 2 layers, checkpoints every 4,
+    a crash at step 5, a fresh Trainer restores step 4 and resumes: its
+    losses and final parameters against an uninterrupted run's, under
+    torch.use_deterministic_algorithms."""
+    cfg = dataclasses.replace(get_model_config("granite-3-2b",
+                                               smoke=not full),
+                              num_layers=2)
+    seq, gb = TRAIN_DATA if full else (32, 2)
+    mk = lambda tag: _trainer(cfg, device, os.path.join(tmp, tag), seq, gb,
+                              8, ckpt_every=4, ckpt_async=False, seed=3)
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = mk("train-ref")
+        ref.init_state()
+        ref.train()
+        crash = mk("train-crash")
+        crash.init_state()
+        try:
+            crash.train(simulate_failure_at=5)
+            raise AssertionError("[train] the simulated failure did not "
+                                 "happen")
+        except RuntimeError as e:
+            if "simulated node failure" not in str(e):
+                raise
+        del crash
+        ckpt_bytes = _dir_bytes(os.path.join(tmp, "train-crash",
+                                             "step_000004"))
+        recov = mk("train-crash")
+        t0 = time.perf_counter()
+        restored = recov.try_restore()
+        restore_s = time.perf_counter() - t0
+        step = recov.step
+        recov.train()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref_losses = [h["loss"] for h in ref.history][4:]
+    rec_losses = [h["loss"] for h in recov.history]
+    p_err = max(_rel_err(a, b) for a, b in zip(tree_leaves(recov.params),
+                                              tree_leaves(ref.params)))
+    rec = {"config": cfg.name, "layers": cfg.num_layers,
+           "restored": restored, "restored_step": step,
+           "ckpt_bytes": ckpt_bytes, "restore_s": restore_s,
+           "losses_ref": ref_losses, "losses_resumed": rec_losses,
+           "losses_equal": ref_losses == rec_losses,
+           "params_rel_err": p_err,
+           "params_bit_equal": all(torch.equal(a, b) for a, b in zip(
+               tree_leaves(recov.params), tree_leaves(ref.params)))}
+    for tag in ("train-ref", "train-crash"):
+        shutil.rmtree(os.path.join(tmp, tag), ignore_errors=True)
+    if not restored or step != 4 or len(rec_losses) != 4 \
+            or not np.allclose(rec_losses, ref_losses,
+                               rtol=TRAIN_RESUME_RTOL, atol=0) \
+            or p_err > TRAIN_RESUME_RTOL:
+        raise AssertionError(f"[train] the resumed run differs from the "
+                             f"uninterrupted one: {rec}")
+    return rec
+
+
+def _train_launcher_and_mamba(device, tmp, full):
+    """Part 5: the launcher trains granite-3-2b (--full on the card) 4
+    steps; mamba2-130m at its published config trains 10 steps through
+    Trainer."""
+    args = ["--arch", "granite-3-2b", "--steps", "4", "--ckpt-every", "100",
+            "--ckpt-dir", os.path.join(tmp, "train-launcher"),
+            "--device", device.type] + (["--full"] if full else [
+                "--seq-len", "32", "--global-batch", "2"])
+    t0 = time.perf_counter()
+    out = train_launcher.main(args)
+    rec = {"launcher_s": time.perf_counter() - t0,
+           "launcher_losses": [h["loss"] for h in out["history"]]}
+    del out
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg = get_model_config("mamba2-130m", smoke=not full)
+    seq, gb = TRAIN_DATA if full else (32, 2)
+    # the smoke config of a rehearsal learns nothing in 10 steps at 3e-4
+    trainer = _trainer(cfg, device, os.path.join(tmp, "train-mamba"), seq,
+                       gb, 10, ckpt_every=10 ** 9,
+                       lr=TRAIN_OPT["lr"] if full else 1e-2)
+    trainer.init_state()
+    ms, _ = _timed_steps(trainer, 10, device, profile_last=False)
+    losses = [h["loss"] for h in trainer.history]
+    rec["mamba2"] = {"config": cfg.name, "layers": cfg.num_layers,
+                     "seq_len": seq, "global_batch": gb, "losses": losses,
+                     "step_ms": ms, "step_ms_median": float(np.median(ms[1:])),
+                     "tokens_per_s": seq * gb / float(np.median(ms[1:]))
+                     * 1e3}
+    for tag in ("train-launcher", "train-mamba"):
+        shutil.rmtree(os.path.join(tmp, tag), ignore_errors=True)
+    if len(rec["launcher_losses"]) != 4 \
+            or not all(np.isfinite(rec["launcher_losses"])):
+        raise AssertionError(f"[train] the launcher's losses: {rec}")
+    if not all(np.isfinite(losses)) \
+            or not np.mean(losses[-3:]) < np.mean(losses[:3]):
+        raise AssertionError(f"[train] mamba2-130m did not train: {losses}")
+    return rec
+
+
+def phase_train(device, tmp, full, ckpt_full=True):
+    """The training path, five parts (PERF.md §6): card against CPU,
+    granite-3-2b at full depth through Trainer, the RunConfig variants,
+    crash and restore, the launcher and mamba2-130m.  No kernel of the
+    four runs on it: their counts are read around the whole phase."""
+    zero_counts()
+    record = {}
+    t0 = time.perf_counter()
+    record["parity"] = _train_parity(device, full)
+    print("[train] parity " + json.dumps(record["parity"]))
+    trainer, record["full_depth"] = _train_full(device, tmp, full, ckpt_full)
+    print("[train] full_depth " + json.dumps(record["full_depth"]))
+    record["variants"] = _train_variants(trainer, device)
+    print("[train] variants " + json.dumps(record["variants"]))
+    del trainer
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    record["resume"] = _train_resume(device, tmp, full)
+    print("[train] resume " + json.dumps(record["resume"]))
+    record["launcher"] = _train_launcher_and_mamba(device, tmp, full)
+    print("[train] launcher " + json.dumps(record["launcher"]))
+    record["launches"] = read_counts()
+    record["phase_s"] = time.perf_counter() - t0
+    print("[train] " + json.dumps({k: record[k] for k in ("launches",
+                                                          "phase_s")}))
+    return record
+
+
 def _bound(ops, nbytes):
     t_ops = ops / H100_SXM.peak_f32_flops
     t_bytes = nbytes / H100_SXM.hbm_bw
@@ -2100,6 +2563,9 @@ def main(argv=None):
                     help="run the control flow on the CPU at tiny shapes "
                          "with the plain versions; prints no result")
     args = ap.parse_args(argv)
+    # deterministic cuBLAS for [train]'s crash-and-restore check: read when
+    # CUDA starts, so it is set before anything touches the card
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.rehearse:
         device, main_shape, budget = torch.device("cpu"), (256, 256, 256), 6
         big, conv_main, conv_big = (128, 256), (64, 256, 3, 3), [
@@ -2199,6 +2665,8 @@ def main(argv=None):
                                           full=not args.rehearse)),
             ("serve_families", lambda: phase_serve_families(
                 device, full=not args.rehearse)),
+            ("train", lambda: phase_train(device, tmp,
+                                          full=not args.rehearse)),
             # after the searches, which build their own configurations
             ("build_space", lambda: phase_build_space(device))]:
         t0 = time.perf_counter()

@@ -1,9 +1,12 @@
-"""Step-function factories shared by the serving engine and (later) the
-trainer.
+"""Step-function factories shared by the trainer and the serving engine.
 
 Each factory closes over static configuration and returns a function of
 tensors.  Where the JAX package jits the step, the port calls it eagerly;
-the serve step runs under ``torch.inference_mode()``.
+the serve step runs under ``torch.inference_mode()``.  The train step
+takes its gradients with ``torch.autograd.grad`` and updates the
+parameters and optimizer state in place (``adamw.update_``): the JAX
+trainer donates both to its jitted step, so neither package holds two
+copies of them.
 """
 
 from __future__ import annotations
@@ -13,7 +16,66 @@ from typing import Any, Mapping, Optional
 
 import torch
 
-from ..models.model import DEFAULT_RUN, RunConfig, decode_step, forward
+from ..models.model import (DEFAULT_RUN, RunConfig, decode_step, forward,
+                            loss_fn)
+from ..models.params import (resolve_device, torch_dtype, tree_leaves,
+                             tree_map)
+from ..optim import adamw
+
+
+def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
+                    opt_cfg: Optional[adamw.OptimConfig] = None,
+                    grad_shardings: Any = None):
+    """(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    ``run.microbatch > 1`` splits the batch on its leading axis and
+    accumulates gradients in ``run.accum_dtype`` (bfloat16 halves the
+    accumulator memory), then divides and casts to float32 as the JAX
+    package does.  The parameters and the optimizer state are updated in
+    place and returned.  ``grad_shardings`` (a layout for the gradient
+    tree) comes with the DTensor slice; until then it must be None.
+    """
+    if grad_shardings is not None:
+        raise NotImplementedError(
+            "grad_shardings needs the DTensor slice (ROADMAP.md, Queue 1)")
+    opt_cfg = opt_cfg or adamw.OptimConfig()
+
+    def grads_of(params, batch):
+        live = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        leaves = tree_leaves(live)
+        with torch.enable_grad():
+            loss, metrics = loss_fn(cfg, live, batch, run)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
+        grad_of = dict(zip(map(id, leaves), grads))
+        return (tree_map(lambda t: grad_of[id(t)], live),
+                {k: v.detach() for k, v in metrics.items()})
+
+    def step(params, opt, batch):
+        # parameters on the card of a host without one: raise, never
+        # fall back to the CPU
+        resolve_device(tree_leaves(params)[0].device)
+        mb = max(1, int(run.microbatch))
+        if mb == 1:
+            grads, metrics = grads_of(params, batch)
+        else:
+            acc_dt = torch_dtype(run.accum_dtype)
+            grads = metrics = None
+            for i in range(mb):
+                one = {k: t.reshape((mb, t.shape[0] // mb) + t.shape[1:])[i]
+                       for k, t in batch.items()}
+                g, m = grads_of(params, one)
+                g = tree_map(lambda a: a.to(acc_dt), g)
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+                metrics = m if metrics is None else {
+                    k: metrics[k] + m[k] for k in metrics}
+                del g
+            grads = tree_map(lambda a: (a / mb).float(), grads)
+            metrics = {k: v / mb for k, v in metrics.items()}
+        params, opt, opt_metrics = adamw.update_(opt_cfg, grads, opt, params)
+        return params, opt, {**metrics, **opt_metrics}
+
+    return step
 
 
 def make_prefill_step(cfg, run: RunConfig = DEFAULT_RUN):

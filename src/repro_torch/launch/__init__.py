@@ -1,6 +1,6 @@
-"""Launchers: ``serve.py``, the serving entry point.
+"""Launchers: ``serve.py`` and ``train.py``, the serving and training
+entry points.
 
-Import-light: no submodule is imported eagerly.  The JAX package's mesh,
-dry-run and training launchers come with their slices (ROADMAP.md,
-Queue 1).
+Import-light: no submodule is imported eagerly.  The JAX package's mesh
+and dry-run launchers come with the DTensor slice (ROADMAP.md, Queue 1).
 """

@@ -1,26 +1,33 @@
-"""Decoder assembly: param trees, forward, decode — all families.
+"""Decoder assembly: param trees, forward, loss, decode — all families.
 
 The layer stack keeps the JAX package's stacked ``(L, ...)`` parameters
 and runs a Python loop over their layers where JAX has ``lax.scan``
 (heterogeneous stacks — MoE leading dense layers, Zamba2 super-blocks
 around one weight-shared attention block — are segmented as there).
 ``RunConfig`` carries the execution knobs of the JAX package field for
-field, so derived configs and memo keys match; ``scan_blocks`` and
-``remat`` change no value here (``remat`` gets its meaning with training).
-The loss (``loss_fn``/``cross_entropy``) comes with training; the MoE
-families' ``mtp`` tree is built so a JAX tree carries over whole, and
-nothing here reads it.
+field, so derived configs and memo keys match; ``scan_blocks`` changes no
+value here.  ``remat`` wraps each layer body in
+``torch.utils.checkpoint`` (where JAX has ``jax.checkpoint``): ``"full"``
+saves nothing inside the body, ``"dots"`` saves the weight projections'
+outputs (``aten.mm``: every projection is a matmul of an activation with
+a weight matrix, the products JAX's ``dots_with_no_batch_dims_saveable``
+keeps) and recomputes the rest, attention's batched score and value
+products (``aten.bmm``) among them.  The loss (``loss_fn``) reads the
+MoE families' ``mtp`` tree for DeepSeek-style multi-token prediction.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import functools
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from .config import ModelConfig
-from .layers import (apply_attention, apply_mlp, attention_cache_defs,
+from .layers import (_proj, apply_attention, apply_mlp, attention_cache_defs,
                      attention_defs, mlp_defs, norm_defs, rms_norm)
 from .mla import apply_mla, mla_cache_defs, mla_defs
 from .moe import apply_moe, moe_defs
@@ -61,6 +68,38 @@ class RunConfig:
 
 
 DEFAULT_RUN = RunConfig()
+
+
+def _save_projections(ctx, op, *args, **kwargs):
+    """``"dots"``: keep what a weight projection computes (``aten.mm``: a
+    matmul of folded activations with a 2-D weight, no batch dimension),
+    recompute everything else."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(run: RunConfig, body: Callable) -> Callable:
+    """``body`` under the run's recomputation policy: its activations are
+    dropped after the forward pass and recomputed in the backward one
+    (``"dots"`` keeps the projections').  Without autograd it is ``body``.
+    """
+    policy = run.remat_policy()
+    if policy is None:
+        return body
+    context = (functools.partial(create_selective_checkpoint_contexts,
+                                 _save_projections)
+               if policy == "dots" else None)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return body(*args)
+        if context is None:
+            return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(body, *args, use_reentrant=False,
+                          context_fn=context)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -227,16 +266,26 @@ def _logits(cfg: ModelConfig, params, x,
                         rms_norm(x, params["final_norm"], cfg.norm_eps), run)
 
 
-def _forward_mambas(cfg: ModelConfig, stacked, x):
+def _forward_mambas(cfg: ModelConfig, run: RunConfig, stacked, x):
+    def body(p, x):
+        return _mamba_block(cfg, p, x)[0]
+    body = _remat(run, body)
     for p in _layers(stacked):
-        x, _ = _mamba_block(cfg, p, x)
+        x = body(p, x)
     return x
 
 
 def _forward_attns(cfg: ModelConfig, run: RunConfig, stacked, x, positions,
-                   ffn: str, aux):
-    for p in _layers(stacked):
+                   ffn: str):
+    """(x, the stack's aux losses summed from zero, as ``lax.scan`` sums
+    them)."""
+    def body(p, x):
         x, a, _ = _attn_block(cfg, run, p, x, positions, ffn)
+        return x, a
+    body = _remat(run, body)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p in _layers(stacked):
+        x, a = body(p, x)
         aux = aux + a
     return x, aux
 
@@ -253,24 +302,33 @@ def forward_hidden(cfg: ModelConfig, params, batch,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family == "ssm":
-        x = _forward_mambas(cfg, params["blocks"], x)
+        x = _forward_mambas(cfg, run, params["blocks"], x)
     elif cfg.family == "hybrid":
-        for pm in _layers(params["super_mambas"]):
-            x = _forward_mambas(cfg, pm, x)
+        def super_body(pm, x):
+            x = _forward_mambas(cfg, run, pm, x)
             x, a, _ = _attn_block(cfg, run, params["shared_attn"], x,
                                   positions, "dense")
-            aux = aux + a
+            return x, a
+        super_body = _remat(run, super_body)
+        aux1 = torch.zeros((), dtype=torch.float32, device=x.device)
+        for pm in _layers(params["super_mambas"]):
+            x, a = super_body(pm, x)
+            aux1 = aux1 + a
+        aux = aux + aux1
         if "tail_mambas" in params:
-            x = _forward_mambas(cfg, params["tail_mambas"], x)
+            x = _forward_mambas(cfg, run, params["tail_mambas"], x)
     elif cfg.is_moe:
         if "dense_blocks" in params:
-            x, aux = _forward_attns(cfg, run, params["dense_blocks"], x,
-                                    positions, "dense", aux)
-        x, aux = _forward_attns(cfg, run, params["moe_blocks"], x,
-                                positions, "moe", aux)
+            x, a = _forward_attns(cfg, run, params["dense_blocks"], x,
+                                  positions, "dense")
+            aux = aux + a
+        x, a = _forward_attns(cfg, run, params["moe_blocks"], x,
+                              positions, "moe")
+        aux = aux + a
     else:
-        x, aux = _forward_attns(cfg, run, params["blocks"], x, positions,
-                                "dense", aux)
+        x, a = _forward_attns(cfg, run, params["blocks"], x, positions,
+                              "dense")
+        aux = aux + a
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
@@ -280,6 +338,88 @@ def forward(cfg: ModelConfig, params, batch,
     """Full-sequence forward.  Returns (logits (B,S,V), aux_loss scalar)."""
     x, aux = forward_hidden(cfg, params, batch, run)
     return _head_logits(cfg, params, x, run), aux
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token NLL in float32 (over ``mask``'s weight when given)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()
+
+
+def _chunk_nll(cfg: ModelConfig, params, h, labels, mask):
+    """(summed masked NLL, mask weight) of one sequence chunk."""
+    logits = _head_logits(cfg, params, h).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def _ce_from_hidden(cfg: ModelConfig, params, hidden, labels, mask,
+                    ce_chunk: int) -> torch.Tensor:
+    """Cross entropy from post-norm hidden states.
+
+    ``ce_chunk > 0``: sequence-chunked — each (B, chunk, V) logits block is
+    built inside ``torch.utils.checkpoint`` and recomputed in the backward
+    pass, so peak memory never holds the full (B, S, V) logits.  No
+    chunking when ``ce_chunk`` does not divide S or S <= ce_chunk.
+    """
+    S = hidden.shape[1]
+    if not ce_chunk or S % ce_chunk or S <= ce_chunk:
+        logits = _head_logits(cfg, params, hidden)
+        return cross_entropy(logits, labels, mask)
+
+    nll_sum = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, S, ce_chunk):
+        sl = slice(i, i + ce_chunk)
+        m = (mask[:, sl] if mask is not None else
+             torch.ones(labels[:, sl].shape, dtype=torch.float32,
+                        device=hidden.device))
+        s, c = checkpoint(functools.partial(_chunk_nll, cfg, params),
+                          hidden[:, sl], labels[:, sl], m,
+                          use_reentrant=False)
+        nll_sum, count = nll_sum + s, count + c
+    return nll_sum / torch.clamp(count, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params, batch,
+            run: RunConfig = DEFAULT_RUN, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total loss, metrics): ``ce``, ``aux``, ``loss`` and, with the MoE
+    families' multi-token prediction, ``mtp``."""
+    hidden, aux = forward_hidden(cfg, params, batch, run)
+    labels = batch["labels"]
+    mask = batch.get("loss_mask")
+    loss = _ce_from_hidden(cfg, params, hidden, labels, mask, run.ce_chunk)
+    metrics = {"ce": loss, "aux": aux}
+    total = loss + aux_weight * aux
+
+    if cfg.mtp_depth and "mtp" in params and cfg.input_mode == "tokens":
+        # DeepSeek-style multi-token prediction: one extra block predicts
+        # token t+2 from [h_t ; embed(label_t)]
+        x, positions = embed_inputs(cfg, params, batch)
+        emb_next = params["embed"][labels]
+        h = _proj(torch.cat([x, emb_next], dim=-1), params["mtp"]["proj"], 1)
+        h, _, _ = _attn_block(cfg, run, params["mtp"]["block"], h,
+                              positions, "moe")
+        h = rms_norm(h, params["mtp"]["norm"], cfg.norm_eps)
+        mtp_labels = torch.roll(labels, -1, dims=-1)
+        mtp_mask = torch.ones(labels.shape, dtype=torch.float32,
+                              device=labels.device)
+        mtp_mask[:, -1] = 0.0
+        mtp_loss = _ce_from_hidden(cfg, params, h, mtp_labels, mtp_mask,
+                                   run.ce_chunk)
+        metrics["mtp"] = mtp_loss
+        total = total + cfg.mtp_loss_weight * mtp_loss
+
+    metrics["loss"] = total
+    return total, metrics
 
 
 # ---------------------------------------------------------------------------

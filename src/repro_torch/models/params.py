@@ -158,6 +158,23 @@ def param_bytes(defs: Any, dtype: str) -> int:
                for d in flat.values())
 
 
+def tree_leaves(tree: Any) -> list:
+    """The tensors of a nested-dict tree in ``jax.tree_util``'s order
+    (dict keys sorted), so sums over leaves add in the JAX package's
+    order."""
+    if isinstance(tree, Mapping):
+        return [t for k in sorted(tree) for t in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of nested-dict trees of one structure."""
+    if isinstance(tree, Mapping):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in tree}
+    return fn(tree, *rest)
+
+
 def _from_numpy(a: np.ndarray) -> torch.Tensor:
     """A tensor that owns a copy of ``a``."""
     a = np.array(a, copy=True, order="C")

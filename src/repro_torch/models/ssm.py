@@ -119,8 +119,13 @@ def ssd_chunked(xin, Bm, Cm, dt, A, D, chunk: int,
     dmat = la[:, :, :, None, :] - la[:, :, None, :, :]  # (B,Cn,Q,Q,H) q vs k
     mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                  device=xin.device))
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(dmat),
-                        torch.zeros((), dtype=dmat.dtype, device=xin.device))
+    # masked before exp, not after: above the diagonal dmat is a positive
+    # sum of decays that overflows exp past ~88, and exp's gradient there
+    # (inf times the masked zero) would be NaN.  The JAX package masks
+    # after exp; the values are the same, the gradients the same wherever
+    # the JAX package's are finite
+    decay = torch.exp(dmat.masked_fill(~mask[None, None, :, :, None],
+                                       float("-inf")))
     m = scores[..., None] * decay                       # (B,Cn,Q,Q,H)
     y_intra = torch.einsum("bcqkh,bckh,bckhp->bcqhp", m, dtc, xc)
 

@@ -174,3 +174,35 @@ def test_serve_engine_and_launcher_need_the_card(no_gpu):
         launcher.main([])
     with pytest.raises(RuntimeError, match="CUDA"):
         launcher.main(["--device", "cuda:0"])
+
+
+def test_training_needs_the_card_unless_asked_for_the_cpu(no_gpu, tmp_path):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.dist.step import make_train_step
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import init_model
+    from repro_torch.train import Trainer, TrainerConfig
+
+    cfg = get_config("granite-3-2b", smoke=True)
+    data = DataConfig(seq_len=8, global_batch=2, vocab_size=cfg.vocab_size)
+    tc = TrainerConfig(ckpt_dir=str(tmp_path / "t"))
+    for device in (None, "cuda", "cuda:0"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Trainer(cfg, data, tc, device=device)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launcher.main(["--steps", "1", "--ckpt-dir", str(tmp_path / "l")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_model(cfg, 0, device="cuda")
+    assert not os.listdir(tmp_path)             # nothing was written
+    with FakeTensorMode():
+        params = {"embed": torch.empty(cfg.vocab_size, cfg.d_model,
+                                       device="cuda")}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_train_step(cfg)(params, None, {})
+    t = Trainer(cfg, data, tc, device="cpu")
+    t.init_state()
+    assert t.params["embed"].device.type == "cpu"
+    assert t.opt_state.count.device.type == "cpu"

@@ -639,7 +639,7 @@ def test_distributed_reruns_share_artifact_store(tmp_path):
     from repro_torch.core import KernelCost
     from repro_torch.core import SearchSpace as SS
     from repro_torch.core.artifacts import ArtifactStore
-    from repro_torch.core.registry import tunable
+    from repro_torch.core.registry import REGISTRY, tunable
 
     def space(shape):
         sp = SS()
@@ -667,13 +667,18 @@ def test_distributed_reruns_share_artifact_store(tmp_path):
         return (sum(s["unique_configs"] for s in stats),
                 sum(s["artifact_hits"] for s in stats))
 
-    unique_cold, hits_cold = fleet()
-    assert unique_cold == 4
-    # each distinct artifact was compiled at most once fleet-wide
-    store = ArtifactStore(store_dir)
-    assert len(store) == 4 - hits_cold
-    unique_warm, hits_warm = fleet()
-    assert (unique_warm, hits_warm) == (4, 4)        # zero fresh compiles
+    # the fleet finds the probe by name in the global registry; leave no
+    # entry behind for later tests in this process (the registry lint)
+    try:
+        unique_cold, hits_cold = fleet()
+        assert unique_cold == 4
+        # each distinct artifact was compiled at most once fleet-wide
+        store = ArtifactStore(store_dir)
+        assert len(store) == 4 - hits_cold
+        unique_warm, hits_warm = fleet()
+        assert (unique_warm, hits_warm) == (4, 4)    # zero fresh compiles
+    finally:
+        REGISTRY.unregister("dtune-artifact-probe")
 
 
 # -- the port's own: parity with the JAX package, builds, shipped profiles ---

@@ -1,0 +1,188 @@
+"""The port's training path for the MoE families (deepseek-v3 with MLA
+and its multi-token-prediction term, kimi-k2) held against the JAX
+package's on the CPU: ``loss_fn``'s metrics and gradients, one
+``make_train_step``, and the remat, chunked cross-entropy and MoE
+dispatch variants.  The bounds are ``tests/test_torch_train.py``'s.
+
+A variant's values are the JAX package's default's
+(``tests/test_models_smoke.py::test_run_config_variants``), so each port
+variant is held to the JAX default's loss and gradients.
+"""
+
+import dataclasses
+import functools
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import repro.configs as ref_configs  # noqa: E402
+import repro.models as ref_models  # noqa: E402
+from repro.dist import step as ref_step  # noqa: E402
+from repro.models.model import RunConfig as RefRunConfig  # noqa: E402
+from repro.optim import adamw as ref_adamw  # noqa: E402
+
+from repro_torch import configs, models  # noqa: E402
+from repro_torch.dist.step import make_train_step  # noqa: E402
+from repro_torch.models.model import RunConfig, loss_fn  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
+
+LOSS_TOL = 1e-5
+GRAD_TOL = 1e-4
+#: ``tests/test_torch_train.py``'s bounds after a step with AdamW's eps at
+#: STEP_EPS (why there): parameters within STEP_TOL of the learning rate,
+#: moments within GRAD_TOL of each leaf's largest |value|; with a bfloat16
+#: accumulator BF16_ACCUM_STEP_TOL and one bfloat16 ulp
+STEP_EPS = 1e-3
+STEP_TOL = 1e-3
+BF16_ACCUM_STEP_TOL = 3e-2
+BF16_ACCUM_TOL = 2.0 ** -7
+B, S = 2, 16
+ARCHS = ("deepseek-v3-671b", "kimi-k2-1t-a32b")
+
+
+def _np_tree(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def _pair(arch, seed=0, **changes):
+    """(JAX cfg, JAX params, port cfg, port params) in float32 with the
+    same weights."""
+    ref_cfg = dataclasses.replace(ref_configs.get_config(arch, smoke=True),
+                                  param_dtype="float32", **changes)
+    cfg = dataclasses.replace(configs.get_config(arch, smoke=True),
+                              param_dtype="float32", **changes)
+    ref_p = ref_models.init_model(ref_cfg, jax.random.PRNGKey(seed))
+    return ref_cfg, ref_p, cfg, models.params_from_numpy(_np_tree(ref_p),
+                                                         "cpu")
+
+
+def _batch(cfg, seed=1):
+    """(JAX batch, port batch) of tokens from one seeded generator."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    labels = rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    return ({"tokens": jnp.asarray(x), "labels": jnp.asarray(labels)},
+            {"tokens": torch.from_numpy(x), "labels": torch.from_numpy(labels)})
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_grads(arch):
+    """The JAX package's (metrics, grads) on ``_pair(arch)`` and
+    ``_batch``, one compile per architecture."""
+    ref_cfg, ref_p, cfg, _ = _pair(arch)
+    ref_b, _ = _batch(cfg)
+    (_, metrics), grads = jax.jit(jax.value_and_grad(
+        lambda p, b: ref_models.loss_fn(ref_cfg, p, b), has_aux=True))(
+        ref_p, ref_b)
+    return {k: float(v) for k, v in metrics.items()}, grads
+
+
+def _port_grads(cfg, params, batch, run=RunConfig()):
+    live = models.tree_map(lambda t: t.detach().requires_grad_(True), params)
+    loss, metrics = loss_fn(cfg, live, batch, run)
+    grads = torch.autograd.grad(loss, models.tree_leaves(live),
+                                allow_unused=True, materialize_grads=True)
+    return {k: v.item() for k, v in metrics.items()}, grads
+
+
+def _assert_leaves(port_leaves, ref_tree, tol, what):
+    ref_leaves = jax.tree_util.tree_leaves(ref_tree)
+    assert len(port_leaves) == len(ref_leaves)
+    errs = []
+    for p, r in zip(port_leaves, ref_leaves):
+        r = np.asarray(r, np.float64)
+        p = p.detach().double().numpy()
+        assert p.shape == r.shape
+        errs.append(np.abs(p - r).max() / (np.abs(r).max() or 1.0))
+    assert max(errs) <= tol, (what, max(errs))
+
+
+def _assert_step(port_leaves, ref_tree, lr, tol, what):
+    """Every parameter within ``tol * lr`` of the JAX package's."""
+    err = max(np.abs(p.double().numpy() - np.asarray(r, np.float64)).max()
+              for p, r in zip(port_leaves,
+                              jax.tree_util.tree_leaves(ref_tree)))
+    assert err <= tol * lr, (what, err / lr)
+
+
+def _assert_metrics(port, ref, tol, what):
+    assert set(port) == set(ref), what
+    for k in ref:
+        assert port[k] == pytest.approx(ref[k], rel=tol, abs=tol), (what, k)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_gradients_match_jax(arch):
+    _, _, cfg, params = _pair(arch)
+    _, b = _batch(cfg)
+    r_met, r_grads = _ref_grads(arch)
+    met, grads = _port_grads(cfg, params, b)
+    _assert_metrics(met, r_met, LOSS_TOL, arch)
+    _assert_leaves(grads, r_grads, GRAD_TOL, arch)
+
+
+@pytest.mark.parametrize("mb,accum", [(1, "float32"), (2, "bfloat16")])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(arch, mb, accum):
+    """One ``make_train_step`` against the JAX package's jitted step."""
+    kw = dict(microbatch=mb, accum_dtype=accum)
+    okw = dict(lr=1e-3, warmup_steps=1, total_steps=10, eps=STEP_EPS)
+    ref_cfg, ref_p, cfg, params = _pair(arch)
+    ref_b, b = _batch(cfg, seed=2)
+    ref_oc = ref_adamw.OptimConfig(**okw)
+    r_p, r_opt, r_met = jax.jit(ref_step.make_train_step(
+        ref_cfg, RefRunConfig(**kw), ref_oc))(
+        ref_p, ref_adamw.init(ref_oc, ref_p), ref_b)
+    oc = adamw.OptimConfig(**okw)
+    opt = adamw.init(oc, params)
+    p, opt, met = make_train_step(cfg, RunConfig(**kw), oc)(params, opt, b)
+    _assert_metrics({k: v.item() for k, v in met.items()},
+                    {k: float(v) for k, v in r_met.items()}, LOSS_TOL, arch)
+    bf16 = accum == "bfloat16"
+    _assert_step(models.tree_leaves(p), r_p, okw["lr"],
+                 BF16_ACCUM_STEP_TOL if bf16 else STEP_TOL, arch)
+    mtol = BF16_ACCUM_TOL if bf16 else GRAD_TOL
+    _assert_leaves(models.tree_leaves(opt.m), r_opt.m, mtol, arch)
+    _assert_leaves(models.tree_leaves(opt.v), r_opt.v, 2 * mtol, arch)
+
+
+@pytest.mark.parametrize("run", [
+    RunConfig(moe_impl="gather"), RunConfig(moe_impl="onehot"),
+    RunConfig(remat="full"), RunConfig(remat="dots", moe_impl="onehot"),
+    RunConfig(ce_chunk=4), RunConfig(remat="dots", ce_chunk=8)], ids=repr)
+@pytest.mark.parametrize("arch", ARCHS)
+def test_run_config_variants_match_jax(arch, run):
+    _, _, cfg, params = _pair(arch)
+    _, b = _batch(cfg)
+    r_met, r_grads = _ref_grads(arch)
+    met, grads = _port_grads(cfg, params, b, run)
+    _assert_metrics(met, r_met, LOSS_TOL, run)
+    _assert_leaves(grads, r_grads, GRAD_TOL, run)
+
+
+def test_mtp_term_is_deepseeks_and_reaches_its_block():
+    """deepseek's loss carries the MTP term with its weight; the MTP
+    block's gradients are JAX's (in the gradient test) and not zero, and
+    without the tree's ``mtp`` there is no term."""
+    _, _, cfg, params = _pair("deepseek-v3-671b")
+    _, b = _batch(cfg)
+    met, grads = _port_grads(cfg, params, b)
+    assert met["loss"] == pytest.approx(
+        met["ce"] + 0.01 * met["aux"] + cfg.mtp_loss_weight * met["mtp"],
+        rel=1e-6)
+    names = [k for k in sorted(params)]
+    leaves = models.tree_leaves(params)
+    i = sum(len(models.tree_leaves(params[k])) for k in names[:names.index(
+        "mtp")])
+    n = len(models.tree_leaves(params["mtp"]))
+    assert all(g.abs().max() > 0 for g in grads[i:i + n]
+               if g.dim() > 1)
+    assert len(leaves) == len(grads)
+    no_mtp = {k: v for k, v in params.items() if k != "mtp"}
+    met2, _ = _port_grads(cfg, no_mtp, b)
+    assert "mtp" not in met2 and met2["ce"] == met["ce"]
