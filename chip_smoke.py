@@ -95,8 +95,25 @@ each printing its own lines:
      ce_chunk and microbatch variants on the first batch with their peak
      memory; a crash at step 5 restored from step 4 at 2 layers under
      deterministic algorithms, equal to an uninterrupted run; the
-     launcher (--full, 4 steps) and mamba2-130m (10 steps); then
-     build_space: every fourth distinct conv build of the extended space
+     launcher (--full, 4 steps) and mamba2-130m (10 steps); then the
+     distribution layer, each part in a spawned process of its own (one
+     default process group each): dist (an NCCL world of one rank,
+     make_host_mesh() -> a 1x1 ("data", "model") mesh; granite-3-2b at
+     full width and depth trained 4 steps at 8 x 256 through Trainer with
+     and without the mesh, losses within 1e-3, step ms and peak; a
+     2-layer checkpoint of the mesh run restored onto the mesh with
+     shardings=, bit for bit; the elastic mesh and validate_batch),
+     dryrun (analyze_cell in fake worlds of 256 and 512 ranks with meta
+     shards: granite-3-2b train_4k, mamba2-130m decode_32k,
+     granite-3-2b decode_32k with its KV cache split along time over
+     "model", deepseek-v3-671b train_4k multi-pod at full width cut to 5
+     layers, whose MoE must move all-to-all bytes; then a 1x1 world at
+     8 x 256 whose op, byte and FLOP counts
+     must equal the meshless meta step's, FLOPs no lower than
+     train_bound_ms's count, its peak within 25 % of dist's) and
+     sharding-tune (tune_cell over granite-3-2b train_4k, greedy,
+     budget 4, the winner resolved by lookup with provenance "exact");
+     then build_space: every fourth distinct conv build of the extended space
      at 3x3 (93 of its 372), 16 nvcc at a time, with ptxas's
      registers and spills (none may spill; after the searches, so their
      nvcc time stays their own)
@@ -179,10 +196,12 @@ from repro_torch.data import DataConfig, to_device  # noqa: E402
 from repro_torch.dist.step import make_train_step  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import train as train_launcher  # noqa: E402
-from repro_torch.models import (RunConfig, abstract_model,  # noqa: E402
-                                count_params, decode_step, forward,
+from repro_torch.models import (SHAPES, RunConfig,  # noqa: E402
+                                abstract_model, count_params, decode_step,
+                                forward,
                                 init_cache, init_model, loss_fn, model_defs,
-                                params_from_numpy, tree_leaves, tree_map)
+                                params_from_numpy, tree_leaves, tree_map,
+                                tree_paths)
 from repro_torch.optim import (OptimConfig, OptState,  # noqa: E402
                                abstract_state)
 from repro_torch.optim import update_ as adamw_update_  # noqa: E402
@@ -2013,13 +2032,20 @@ def _train_parity(device, full):
 
 def train_bound_ms(cfg, tokens, seq_len, batch):
     """The least time one AdamW train step of ``cfg`` could take on the
-    card: 6 FLOP a non-embedding parameter a token plus attention's
+    card: 6 FLOP a product's weight a token (not the embedding's gather,
+    not the norm scales) plus attention's
     unmasked S^2 products (forward and backward) at the bf16 tensor-core
     rate, then the optimizer's bytes (bf16 parameters read and written,
     float32 moments read and written, bf16 gradients read twice: 24 B a
     parameter) at the memory rate.  ``(compute ms, optimizer ms)``."""
     n = count_params(model_defs(cfg))
-    matmul_params = n - cfg.vocab_size * cfg.d_model      # not the gather
+    # the weights of products: every leaf of two or more dims besides the
+    # stacked layer dim (norm scales and biases are not), but the
+    # embedding, which is a gather
+    matmul_params = sum(
+        math.prod(d.shape) for d in tree_paths(model_defs(cfg)).values()
+        if sum(a != "layers" for a in d.axes) >= 2) \
+        - cfg.vocab_size * cfg.d_model
     attn = 12 * batch * cfg.num_heads * seq_len ** 2 \
         * cfg.resolved_head_dim * cfg.num_layers
     flops = 6 * matmul_params * tokens + attn
@@ -2557,12 +2583,388 @@ def phase_times_new(conv_cases_t, flash_cases_t, device):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the distribution layer: [dist], [dryrun], [sharding-tune].  Each runs in a
+# spawned process of its own: the card's NCCL world of one and the dry-run's
+# fake world are each a process's one default process group.
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 4
+#: relative bound on a mesh trainer's loss against the meshless trainer's
+DIST_LOSS_TOL = 1e-3
+#: the dry-run's per-rank peak against the card's measured peak
+DRYRUN_PEAK_TOL = 0.25
+#: the dry-run cells of [dryrun]: (arch, shape, multi_pod, layers or None
+#: for all, rules override).  deepseek-v3 keeps its width and is cut to
+#: its 3 dense and 2 MoE layers: its 61 take ~200 s to trace (``--all``
+#: traces them all).  granite-3-2b's decode splits its KV cache along time
+#: over "model" (the tuner's starting point for decode cells)
+DRYRUN_CELLS = [("granite-3-2b", "train_4k", False, None, None),
+                ("mamba2-130m", "decode_32k", False, None, None),
+                ("granite-3-2b", "decode_32k", False, None,
+                 {"seq_kv": "model"}),
+                ("deepseek-v3-671b", "train_4k", True, 5, None)]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _child(queue, fn, args):
+    """Run ``fn(*args)`` in this (spawned) process; hand back its result,
+    or its traceback."""
+    import traceback
+    try:
+        queue.put(("ok", fn(*args)))
+    except BaseException:  # noqa: BLE001 — re-raised in the parent
+        queue.put(("error", traceback.format_exc()))
+        raise
+
+
+def in_process(fn, *args, timeout_s=900):
+    """``fn(*args)`` in a spawned process; its result, or a raise with the
+    child's traceback.  The process is joined (killed past the limit)."""
+    import multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    proc = ctx.Process(target=_child, args=(queue, fn, args))
+    proc.start()
+    try:
+        status, value = queue.get(timeout=timeout_s)
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.kill()
+            proc.join()
+    if status != "ok":
+        what = (args[0] if fn is counted else fn).__name__
+        raise AssertionError(f"{what} failed in its process:\n{value}")
+    return value
+
+
+def counted(fn, *args):
+    """``fn(*args)`` (a dict) with the launch counts of this process, set
+    to 0 just before it and read just after, under "launches": a spawned
+    phase's kernels count in its own process."""
+    zero_counts()
+    rec = fn(*args)
+    rec["launches"] = read_counts()
+    return rec
+
+
+def _dist_trainer(cfg, device, mesh, ckpt_dir, steps, seq, gb):
+    return Trainer(cfg, DataConfig(seq_len=seq, global_batch=gb,
+                                   vocab_size=cfg.vocab_size, seed=0),
+                   TrainerConfig(total_steps=steps, ckpt_every=10 ** 9,
+                                 ckpt_dir=ckpt_dir, ckpt_async=False,
+                                 log_every=10 ** 9),
+                   opt_cfg=OptimConfig(**dict(TRAIN_OPT, total_steps=steps)),
+                   mesh=mesh, device=device)
+
+
+def dist_main(full):
+    """[dist], in its own process: a world of one rank (NCCL on the card,
+    gloo in a rehearsal), ``make_host_mesh()`` -> a 1x1 ("data", "model")
+    mesh, granite-3-2b trained DIST_STEPS steps through ``Trainer`` with
+    and without it (the same seed; losses within DIST_LOSS_TOL), step ms
+    from CUDA events and the peak; a 2-layer checkpoint of the mesh run
+    restored onto the mesh with ``shardings=`` bit for bit; the elastic
+    mesh and the batch check on the card's world."""
+    import torch.distributed as dist
+    from repro_torch.dist import partition
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import tree_leaves
+    from repro_torch.runtime import make_elastic_mesh, validate_batch
+    cuda = full
+    device = torch.device("cuda" if cuda else "cpu")
+    if cuda:
+        torch.cuda.set_device(0)
+    dist.init_process_group("nccl" if cuda else "gloo",
+                            init_method=f"tcp://localhost:{_free_port()}",
+                            rank=0, world_size=1)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke-dist-")
+    try:
+        mesh = make_host_mesh(device_type=device.type)
+        cfg = get_model_config("granite-3-2b", smoke=not full)
+        seq, gb = TRAIN_DATA if full else (32, 2)
+        rec = {"mesh_shape": dict(zip(mesh.mesh_dim_names,
+                                      tuple(mesh.shape))),
+               "device_type": mesh.device_type, "config": cfg.name,
+               "layers": cfg.num_layers, "seq_len": seq, "global_batch": gb,
+               "steps": DIST_STEPS}
+        for name, m in (("meshless", None), ("mesh", mesh)):
+            if cuda:
+                torch.cuda.reset_peak_memory_stats()
+            tr = _dist_trainer(cfg, device, m, os.path.join(tmp, name),
+                               DIST_STEPS, seq, gb)
+            tr.init_state()
+            ms, _ = _timed_steps(tr, DIST_STEPS, device, profile_last=False)
+            leaf = tree_leaves(tr.params)[0]
+            rec[name] = {"losses": [h["loss"] for h in tr.history],
+                         "step_ms": ms,
+                         "step_ms_median": float(np.median(ms[1:])),
+                         "peak_gib": _peak(device),
+                         "peak_bytes": (torch.cuda.max_memory_allocated()
+                                        if cuda else None),
+                         "leaf_type": type(leaf).__name__}
+            del tr, leaf
+            if cuda:
+                torch.cuda.empty_cache()
+        diffs = [abs(a - b) / abs(b) for a, b in zip(
+            rec["mesh"]["losses"], rec["meshless"]["losses"])]
+        rec["max_loss_rel_diff"] = max(diffs)
+        if rec["mesh"]["leaf_type"] != "DTensor":
+            raise AssertionError(f"[dist] the mesh trainer holds "
+                                 f"{rec['mesh']['leaf_type']}, not DTensor")
+        if not rec["max_loss_rel_diff"] <= DIST_LOSS_TOL:
+            raise AssertionError(f"[dist] mesh losses differ: {rec}")
+        # save on the mesh, restore onto it (shardings=): bit for bit
+        small = dataclasses.replace(cfg, num_layers=2) if full else cfg
+        d = os.path.join(tmp, "ckpt")
+        a = _dist_trainer(small, device, mesh, d, 1, seq, gb)
+        a.train()
+        a.save(block=True)
+        b = _dist_trainer(small, device, mesh, d, 1, seq, gb)
+        if not b.try_restore():
+            raise AssertionError("[dist] no checkpoint to restore")
+        pairs = list(zip(tree_leaves(partition.gather(a._tree())),
+                         tree_leaves(partition.gather(b._tree()))))
+        rec["restore"] = {
+            "layers": small.num_layers, "leaves": len(pairs),
+            "bit_equal": all(torch.equal(x, y) for x, y in pairs),
+            "step": b.step,
+            "dtensor": all(type(t).__name__ == "DTensor"
+                           for t in tree_leaves(b.params))}
+        del a, b, pairs
+        if not (rec["restore"]["bit_equal"] and rec["restore"]["dtensor"]
+                and rec["restore"]["step"] == 1):
+            raise AssertionError(f"[dist] restore(shardings=): {rec}")
+        em, decision = make_elastic_mesh(model_parallel=1,
+                                         device_type=device.type)
+        rec["elastic"] = {"mesh_shape": list(decision.mesh_shape),
+                          "axis_names": list(decision.axis_names),
+                          "dropped": decision.dropped, "note": decision.note,
+                          "validate_batch": validate_batch(gb, em)}
+        if not (tuple(em.shape) == (1, 1) and rec["elastic"]
+                ["validate_batch"]):
+            raise AssertionError(f"[dist] elastic mesh: {rec['elastic']}")
+        return rec
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _cell_line(rec):
+    r = rec["roofline"]
+    return {"arch": rec["arch"], "shape": rec["shape"], "mesh": rec["mesh"],
+            "lower_s": rec["lower_s"], "measure_s": rec["measure_s"],
+            "flops_per_chip": rec["flops_per_chip"],
+            "bytes_per_chip": rec["bytes_per_chip"],
+            "collective_by_op": rec["collective_by_op"],
+            "memory_gib": rec["memory"]["total_bytes_per_device"] / 2 ** 30,
+            "compute_ms": r["compute_t"] * 1e3,
+            "memory_ms": r["memory_t"] * 1e3,
+            "collective_ms": r["collective_t"] * 1e3,
+            "dominant": r["dominant"], "step_ms": r["step_t"] * 1e3,
+            "useful_flops_ratio": rec["useful_flops_ratio"]}
+
+
+def dryrun_main(full, card_peak_bytes):
+    """[dryrun], in its own process: ``analyze_cell`` on fake worlds for
+    DRYRUN_CELLS (the card's ``cuda`` mesh type; meta shards), then a 1x1
+    fake world at [train]'s 8 x 256: its ops and bytes against
+    ``step_traffic`` (differences listed op by op), its FLOPs against
+    ``train_bound_ms``'s count, its peak against [dist]'s."""
+    from repro_torch.dist import sharding
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import ShapeConfig
+    device_type = "cuda" if full else "cpu"
+    rec = {"cells": []}
+    for arch, shape, multi, layers, rules in DRYRUN_CELLS:
+        if rules:
+            rules = dict(dryrun.default_rules_override(arch), **rules)
+        if full:
+            cfg = get_model_config(arch)
+            if layers:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            out = dryrun.analyze_cell(arch, shape, multi_pod=multi,
+                                      device_type=device_type, cfg=cfg,
+                                      rules_override=rules)
+        else:                                # a rehearsal: smoke, 2x4
+            small = ShapeConfig(shape, 32, 16, SHAPES[shape].kind)
+            out = dryrun.analyze_cell(
+                arch, small, mesh_shape=(2, 4), device_type=device_type,
+                cfg=get_model_config(arch, smoke=True), rules_override=rules,
+                run=dataclasses.replace(dryrun.default_run_config(
+                    arch, shape), microbatch=1))
+        line = dict(_cell_line(out), layers=(layers if full and layers
+                                            else None), rules=rules)
+        print("[dryrun] cell " + json.dumps(line), flush=True)
+        rec["cells"].append(line)
+    deepseek = next(c for c in rec["cells"]
+                    if c["arch"] == "deepseek-v3-671b")
+    if full and not deepseek["collective_by_op"]["all-to-all"] > 0:
+        raise AssertionError(f"[dryrun] deepseek-v3 moved no all-to-all "
+                             f"bytes: {deepseek}")
+    # the 1x1 count at [train]'s shape against step_traffic
+    cfg = get_model_config("granite-3-2b", smoke=not full)
+    seq, gb = TRAIN_DATA if full else (32, 2)
+    with dryrun.fake_world(1):
+        mesh = dryrun._mesh((1, 1), device_type)
+        t0 = time.perf_counter()
+        trace = dryrun._traced_step(
+            cfg, ShapeConfig("train", seq, gb, "train"), RunConfig(), mesh,
+            dict(sharding.DEFAULT_RULES), OptimConfig(**TRAIN_OPT))
+        traced_s = time.perf_counter() - t0
+    traffic = step_traffic(cfg, seq, gb)
+    meta_ops = traffic["model_ops"] + traffic["optimizer_ops"]
+    meta_gb = traffic["model_gb"] + traffic["optimizer_gb"]
+    plain = step_traffic_by_op(cfg, seq, gb)
+    diff = {k: {"1x1": trace.by_op.get(k, [0, 0])[:2],
+                "meshless": plain.get(k, [0, 0])[:2]}
+            for k in set(trace.by_op) | set(plain)
+            if trace.by_op.get(k, [0, 0])[:2] != plain.get(k, [0, 0])[:2]}
+    compute_ms, _ = train_bound_ms(cfg, seq * gb, seq, gb)
+    bound_flops = compute_ms / 1e3 * H100_SXM.peak_bf16_tensor_flops
+    rec["one_by_one"] = {
+        "traced_s": traced_s, "ops": trace.ops, "gb": trace.bytes / 1e9,
+        "step_traffic_ops": meta_ops, "step_traffic_gb": meta_gb,
+        "differences": diff, "flops": trace.flops,
+        "bound_flops": bound_flops,
+        "flops_over_bound": trace.flops / bound_flops,
+        "peak_gib": trace.peak / 2 ** 30,
+        "card_peak_gib": (card_peak_bytes / 2 ** 30 if card_peak_bytes
+                          else None)}
+    one = rec["one_by_one"]
+    print("[dryrun] 1x1 " + json.dumps(one), flush=True)
+    if diff:
+        raise AssertionError(f"[dryrun] the 1x1 count differs from the "
+                             f"meshless count: {diff}")
+    # step_traffic's count also holds its inputs' allocations: the same
+    # calls, counted alone
+    from repro_torch.core.cost import OpTrace
+    params = abstract_model(cfg)
+    alloc = OpTrace()
+    with alloc:
+        OptState(*abstract_state(OptimConfig(), params)[:2],
+                 count=torch.empty((), dtype=torch.int32, device="meta"))
+        {k: torch.empty((gb, seq), dtype=torch.int32, device="meta")
+         for k in ("tokens", "labels")}
+    empty = alloc.ops
+    one["step_traffic_input_allocations"] = empty
+    if one["step_traffic_ops"] != trace.ops + empty:
+        raise AssertionError(f"[dryrun] step_traffic counts "
+                             f"{one['step_traffic_ops']} ops, the 1x1 "
+                             f"{trace.ops} and {empty} input allocations")
+    if not one["flops_over_bound"] >= 1.0:
+        raise AssertionError(f"[dryrun] the 1x1 FLOPs fall below "
+                             f"train_bound_ms's count: {one}")
+    if card_peak_bytes:
+        rel = abs(trace.peak - card_peak_bytes) / card_peak_bytes
+        one["peak_rel_diff"] = rel
+        if not rel <= DRYRUN_PEAK_TOL:
+            raise AssertionError(f"[dryrun] 1x1 peak {one['peak_gib']:.2f} "
+                                 f"GiB against the card's "
+                                 f"{one['card_peak_gib']:.2f} GiB")
+    return rec
+
+
+def step_traffic_by_op(cfg, seq_len, batch):
+    """``step_traffic``'s meta-device step, counted op by op by the port's
+    recorder ({op: [count, bytes, flops]}), its inputs made before the
+    count starts (``step_traffic`` makes the optimizer state and the
+    batch inside its count: ``aten.empty`` ops of their size)."""
+    from repro_torch.core.cost import OpTrace
+    params = abstract_model(cfg)
+    meta = lambda shape, dt: torch.empty(shape, dtype=dt, device="meta")
+    state = OptState(*abstract_state(OptimConfig(), params)[:2],
+                     count=meta((), torch.int32))
+    inputs = {k: meta((batch, seq_len), torch.int32)
+              for k in ("tokens", "labels")}
+    trace = OpTrace()
+    with trace:
+        make_train_step(cfg, opt_cfg=OptimConfig(**TRAIN_OPT))(
+            params, state, inputs)
+    return trace.by_op
+
+
+def sharding_tune_main(full):
+    """[sharding-tune], in its own process: ``tune_cell`` (greedy, budget
+    4) over granite-3-2b train_4k's distributed-config space against the
+    fake-world roofline; the winner is recorded and ``lookup`` answers
+    with "exact".  A rehearsal tunes mamba2-130m decode_32k (budget 2) on
+    a cpu mesh."""
+    from repro_torch.core.registry import lookup_resolved
+    from repro_torch.tune import sharding_autotune
+    arch, shape, budget = (("granite-3-2b", "train_4k", 4) if full else
+                           ("mamba2-130m", "decode_32k", 2))
+    if not full:
+        sharding_autotune._cell_objectives[(arch, shape, False)] = \
+            sharding_autotune.CellObjective(arch, shape, device_type="cpu")
+    t0 = time.perf_counter()
+    out = sharding_autotune.tune_cell(arch, shape, strategy="greedy",
+                                      budget=budget)
+    wall = time.perf_counter() - t0
+    res = lookup_resolved("sharding_cell", {"arch": arch, "shape": shape,
+                                            "multi_pod": False},
+                          profile=H100_SXM)
+    rec = {"arch": arch, "shape": shape, "budget": budget, "wall_s": wall,
+           "best_config": out["best_config"],
+           "best_step_ms": out["best_step_t"] * 1e3,
+           "evaluations": [{"config": e["config"],
+                            "step_ms": (e["score"] * 1e3
+                                        if e.get("score") is not None
+                                        else None),
+                            "eval_s": e.get("eval_s"),
+                            "error": e.get("error")} for e in out["log"]],
+           "lookup": {"provenance": res.provenance, "config": res.config}}
+    if res.provenance != "exact" or res.config != out["best_config"]:
+        raise AssertionError(f"[sharding-tune] lookup: {rec['lookup']}")
+    if not math.isfinite(out["best_step_t"]):
+        raise AssertionError(f"[sharding-tune] no feasible config: {rec}")
+    return rec
+
+
+def phase_distribution(device, full, train_rec):
+    """[dist], [dryrun] and [sharding-tune], each in a spawned process; no
+    kernel of the four runs on them (each process reads its own counts
+    around its phase, ``counted``)."""
+    record = {}
+    t0 = time.perf_counter()
+    record["dist"] = in_process(counted, dist_main, full)
+    meshless_ms = (train_rec or {}).get("full_depth", {}).get(
+        "step_ms_median")
+    print("[dist] " + json.dumps(dict(record["dist"],
+                                      train_meshless_ms=meshless_ms)),
+          flush=True)
+    record["dist_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["dryrun"] = in_process(counted, dryrun_main, full,
+                                  record["dist"]["mesh"]["peak_bytes"])
+    record["dryrun_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    record["sharding_tune"] = in_process(counted, sharding_tune_main, full)
+    print("[sharding-tune] " + json.dumps(record["sharding_tune"]),
+          flush=True)
+    record["sharding_tune_s"] = time.perf_counter() - t0
+    record["launches"] = {k: record[k]["launches"]
+                          for k in ("dist", "dryrun", "sharding_tune")}
+    print("[distribution] " + json.dumps(
+        {k: record[k] for k in ("dist_s", "dryrun_s", "sharding_tune_s",
+                                "launches")}), flush=True)
+    return record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rehearse", action="store_true",
                     help="run the control flow on the CPU at tiny shapes "
                          "with the plain versions; prints no result")
     args = ap.parse_args(argv)
+    t_main = time.perf_counter()
     # deterministic cuBLAS for [train]'s crash-and-restore check: read when
     # CUDA starts, so it is set before anything touches the card
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -2667,6 +3069,8 @@ def main(argv=None):
                 device, full=not args.rehearse)),
             ("train", lambda: phase_train(device, tmp,
                                           full=not args.rehearse)),
+            ("distribution", lambda: phase_distribution(
+                device, not args.rehearse, new.get("train"))),
             # after the searches, which build their own configurations
             ("build_space", lambda: phase_build_space(device))]:
         t0 = time.perf_counter()
@@ -2725,6 +3129,7 @@ def main(argv=None):
         json.dump({"card": smi, "device": str(device), "sweep": sweep,
                    "main": main_rec, "times": times, **new, **line}, f,
                   indent=1)
+    print(f"[total] {time.perf_counter() - t_main:.1f} s")
     print(json.dumps(line))
     if args.rehearse:
         print("[rehearsal] done; no result line on the CPU")

@@ -20,9 +20,14 @@ Durability discipline:
     is not blocked by disk I/O.
 
 ``save`` copies each leaf to the host one at a time and widens it there,
-so the card never holds a float32 copy of the tree.  ``restore`` places
-each leaf on ``device`` or, with a template, on the template leaf's
-device; the JAX package's ``shardings=`` waits for the DTensor slice.
+so the card never holds a float32 copy of the tree.  A DTensor leaf is
+stored as its global tensor (``full_tensor()``, a collective every rank
+of its mesh joins), as the JAX package stores global arrays, and only
+rank 0 of the default process group writes.  ``restore`` places each
+leaf on ``device`` or, with a template, on the template leaf's device;
+with ``shardings`` (a layout tree, ``repro_torch.dist.partition``) it
+lays each leaf out on its mesh, so a checkpoint saved on one mesh
+restores onto another.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 _STEP_RE = re.compile(r"^step_(\d{6,})$")
 #: dtypes numpy has no type for: stored widened to float32
@@ -83,6 +89,8 @@ def _to_host(leaf: Any):
     never a view of a live tensor (an async write must not see the next
     step's update)."""
     if isinstance(leaf, torch.Tensor):
+        if isinstance(leaf, DTensor):
+            leaf = leaf.full_tensor()
         host = leaf.detach().to("cpu", copy=True)
         name = str(host.dtype).removeprefix("torch.")
         if name in _WIDENED:
@@ -101,6 +109,12 @@ def _from_host(a: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
     if dtype and str(t.dtype).removeprefix("torch.") != dtype:
         t = t.to(getattr(torch, dtype))              # bf16/fp8: exact
     return t
+
+
+def _rank() -> int:
+    """This process's rank in the default process group (0 without one)."""
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
 
 
 @dataclasses.dataclass
@@ -168,6 +182,8 @@ class CheckpointManager:
             except Exception as e:  # noqa: BLE001
                 self._error = e
 
+        if _rank() != 0:
+            return
         if self.async_save and not block:
             self._writer = threading.Thread(target=write, daemon=True)
             self._writer.start()
@@ -193,15 +209,17 @@ class CheckpointManager:
 
     # -- restore ----------------------------------------------------------------
     def restore(self, step: Optional[int] = None, template: Any = None,
-                device: "torch.device | str | None" = None
-                ) -> Dict[str, Any]:
+                device: "torch.device | str | None" = None,
+                shardings: Any = None) -> Dict[str, Any]:
         """Load a checkpoint.
 
         Without ``template`` the tree is the flat ``{path: tensor}`` map;
         with one (a tree of tensors), each leaf takes the template leaf's
         place, dtype and device (``device``, when given, overrides the
         device; a template on the ``meta`` device restores to the CPU).
-        bfloat16 leaves come back bit for bit.
+        ``shardings`` (a layout tree of the template's structure) then
+        lays each leaf out on its mesh.  bfloat16 leaves come back bit for
+        bit.
         Returns {"step", "tree", "extra"}.
         """
         step = self.latest_step() if step is None else step
@@ -225,6 +243,9 @@ class CheckpointManager:
                     "cpu" if like.device.type == "meta" else like.device)
                 return t.to(device=dev, dtype=like.dtype)
             tree = _unflatten_into(template, flat, place)
+            if shardings is not None:
+                from ..dist.partition import distribute
+                tree = distribute(tree, shardings)
         return {"step": manifest["step"], "tree": tree,
                 "extra": manifest.get("extra", {})}
 

@@ -4,18 +4,19 @@ Each architecture module exports FULL (exact published config), SMOKE
 (reduced same-family config for CPU tests), SKIP_SHAPES and NOTES.  The
 modules are loaded from this package (``repro_torch.configs.*``), so every
 config is the port's own :class:`~repro_torch.models.config.ModelConfig`.
-
-The JAX package's ``input_specs`` (shape stand-ins for the dry-run) waits
-for the port's ``launch/dryrun.py`` (ROADMAP.md, Queue 1).
+``input_specs`` gives the model inputs of one cell as ``meta`` tensors
+(shapes and dtypes, no storage): the dry-run's batch.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Set
+from typing import Any, Dict, Set
 
-from ..models.config import SHAPES, ModelConfig
+import torch
+
+from ..models.config import SHAPES, ModelConfig, ShapeConfig
 
 _ARCH_MODULES = {
     "mistral-large-123b": "mistral_large_123b",
@@ -70,6 +71,32 @@ def all_cells(include_skipped: bool = False):
             if skipped and not include_skipped:
                 continue
             yield arch_id, shape_name, skipped
+
+
+def input_specs(cfg: ModelConfig, shape: "ShapeConfig | str",
+                with_labels: bool = True) -> Dict[str, Any]:
+    """``meta`` tensors standing in for the model inputs of one cell.
+
+    train/prefill: {'tokens' or 'embeds', 'labels'} at (global_batch, seq);
+    decode: one new token (B, 1) — the cache/pos specs come from
+    ``cache_defs`` since they depend on the mesh.
+    """
+    if isinstance(shape, str):
+        shape = SHAPES[shape]
+    B, S = shape.global_batch, shape.seq_len
+    f = lambda shp, dt: torch.empty(shp, dtype=dt, device="meta")
+    if shape.kind == "decode":
+        if cfg.input_mode == "embeddings":
+            return {"inputs": f((B, 1, cfg.d_model), torch.bfloat16)}
+        return {"inputs": f((B, 1), torch.int32)}
+    out: Dict[str, Any] = {}
+    if cfg.input_mode == "embeddings":
+        out["embeds"] = f((B, S, cfg.d_model), torch.bfloat16)
+    else:
+        out["tokens"] = f((B, S), torch.int32)
+    if with_labels and shape.kind == "train":
+        out["labels"] = f((B, S), torch.int32)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -53,6 +53,14 @@ class DeviceProfile:
     #: 1024 on every CUDA device since compute capability 2.0 (the runtime
     #: properties PyTorch exposes do not carry it)
     max_threads_per_block: int = 1024
+    #: inter-GPU links one card drives and each link's rate in one
+    #: direction, bytes/s (the twins of the JAX profiles' ``ici_links`` /
+    #: ``ici_bw``): NVLink 4 on the H100 SXM is 18 links of 25 GB/s a
+    #: direction, 450 GB/s — half the datasheet's 900 GB/s, which counts
+    #: both directions.  The dry-run's collective term divides by their
+    #: product; a collective that leaves the node (InfiniBand) is slower.
+    link_count: int = 18
+    link_bw: float = 25e9
 
     def fits_smem(self, nbytes: int) -> bool:
         """Whether a declared shared-memory footprint fits one block.

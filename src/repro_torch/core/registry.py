@@ -249,7 +249,8 @@ def _ensure_builtins() -> None:
     populate the global registry, so by-name resolution works without the
     caller knowing which module declares a kernel."""
     import importlib
-    for module in ("repro_torch.kernels",):
+    for module in ("repro_torch.kernels",
+                   "repro_torch.tune.sharding_autotune"):
         try:
             importlib.import_module(module)
         except Exception as e:  # noqa: BLE001 — optional deps may be absent

@@ -1,0 +1,499 @@
+"""Logical-axis sharding on DTensor: rules, specs and in-model annotations.
+
+Model code never names mesh axes.  It tags tensor dimensions with
+*logical* axes (``shard(x, "batch", "seq", "embed")``; ``ParamDef.axes``)
+and this module maps them onto whatever ``DeviceMesh`` is active through
+a rules table:
+
+    rules = {"batch": ("pod", "data"), "heads": "model", ...}
+
+``spec_for`` turns (shape, logical axes) into a spec — a tuple with one
+entry per tensor dimension: a mesh-axis name, a tuple of them, or None —
+with the JAX package's two safety properties:
+
+  * divisibility — a dimension that does not divide the mapped mesh-axis
+    extent is left replicated;
+  * dedup — a mesh axis is claimed by at most one tensor dimension
+    (first-come, left-to-right), so ``("batch", "seq", "embed")`` under
+    FSDP rules cannot double-bind ``data``.
+
+The entries equal those of the JAX package's ``PartitionSpec`` for the
+same inputs.  :func:`placements` turns a spec into DTensor placements,
+one per mesh dimension.
+
+``use_sharding`` installs (mesh, rules) for a ``with`` scope.  ``shard``
+returns its argument outside one; inside one it redistributes a DTensor
+to the spec's placements (a ``Partial`` left by a sharded contraction
+becomes a reduce-scatter or an all-reduce there, as GSPMD resolves it)
+and refuses a plain tensor.
+
+Where DTensor has no sharding rule for the maths, :func:`run_local` runs
+a function on each rank's shards (DTensor's ``local_map``, layouts given
+as specs) and :func:`local_range` tells a rank which chunk of a
+dimension, named by logical axes, it holds.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import sys
+import threading
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+
+import torch
+
+#: logical axis -> mesh axis (str), mesh axes (tuple, major-to-minor), or
+#: None (replicated).  Axes absent from the active mesh are filtered, so one
+#: table serves both the single-pod ("data", "model") and multi-pod
+#: ("pod", "data", "model") meshes.  The JAX package's table, entry for entry.
+DEFAULT_RULES: Dict[str, Any] = {
+    # activations
+    "batch": ("pod", "data"),
+    "seq": None,
+    "seq_attn": None,        # sequence-parallel attention cells map -> model
+    "seq_kv": None,          # decode KV-cache time dim (tuner-controlled)
+    "vocab": "model",
+    # parameters
+    "embed": ("pod", "data"),    # FSDP extent; tuner maps None/data/pod_data
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "mlp": "model",
+    "experts": "model",
+    "expert_mlp": "model",
+    "expert_cap": None,
+    "q_lora": None,
+    "kv_lora": None,
+    "ssm_inner": "model",
+    "ssm_heads": "model",
+    "ssm_pdim": None,
+    "ssm_state": None,
+    "conv_dim": None,
+    "layers": None,
+}
+
+Spec = Tuple[Any, ...]
+
+
+def _is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor — without importing DTensor: a process
+    that never imported it holds none."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(x, mod.DTensor)
+
+
+def _api():
+    """(DTensor, Replicate, Shard, Partial), imported on first use."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    return DTensor, Replicate, Shard, Partial
+
+
+class _Active(threading.local):
+    def __init__(self):
+        self.stack: List[Tuple[Any, Dict[str, Any]]] = []
+
+
+_active = _Active()
+
+
+def merged_rules(rules: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """``DEFAULT_RULES`` updated with ``rules``."""
+    out = dict(DEFAULT_RULES)
+    if rules:
+        out.update(rules)
+    return out
+
+
+@contextlib.contextmanager
+def use_sharding(mesh, rules: Optional[Mapping[str, Any]] = None
+                 ) -> Iterator[None]:
+    """Activate (mesh, rules) for ``shard`` annotations in this scope."""
+    _active.stack.append((mesh, merged_rules(rules)))
+    try:
+        yield
+    finally:
+        _active.stack.pop()
+
+
+def current() -> Optional[Tuple[Any, Dict[str, Any]]]:
+    return _active.stack[-1] if _active.stack else None
+
+
+def current_mesh():
+    ctx = current()
+    return ctx[0] if ctx else None
+
+
+def mesh_sizes(mesh) -> Dict[str, int]:
+    """{mesh axis name: extent}; reads only ``mesh_dim_names`` and
+    ``shape``, so a stand-in object with those two serves."""
+    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
+             rules: Mapping[str, Any], mesh) -> Spec:
+    """The spec for ``shape`` whose dims carry logical ``axes``.
+
+    Mesh axes are claimed left-to-right at most once; a mapping is applied
+    only when the dimension divides the product of the (present, unclaimed)
+    mesh axes it names.  Trailing replicated dims are trimmed so specs
+    compare equal to their hand-written forms.
+    """
+    sizes = mesh_sizes(mesh)
+    used: set = set()
+    entries: List[Any] = []
+    for dim, logical in zip(shape, axes):
+        entry = None
+        if logical is not None:
+            mapped = rules.get(logical)
+            names = (tuple(mapped) if isinstance(mapped, (tuple, list))
+                     else (mapped,) if mapped is not None else ())
+            cand = [m for m in names if m in sizes and m not in used]
+            if cand:
+                extent = math.prod(sizes[m] for m in cand)
+                if dim % extent == 0:
+                    used.update(cand)
+                    entry = cand[0] if len(cand) == 1 else tuple(cand)
+        entries.append(entry)
+    while entries and entries[-1] is None:
+        entries.pop()
+    return tuple(entries)
+
+
+def placements(spec: Spec, ndim: int, mesh) -> Tuple[Any, ...]:
+    """DTensor placements of ``spec``: one per mesh dimension, ``Shard(d)``
+    where tensor dim ``d`` names that mesh axis, else ``Replicate()``.  A
+    dim mapped to ("pod", "data") is sharded over both mesh dims in mesh
+    order — JAX's major-to-minor.  A mesh dim of extent 1 is
+    ``Replicate()``: its one shard is the whole tensor either way."""
+    _, Replicate, Shard, _ = _api()
+    if len(spec) > ndim:
+        raise ValueError(f"spec {spec} has more entries than {ndim} dims")
+    owner: Dict[str, int] = {}
+    for d, entry in enumerate(spec):
+        for name in (entry if isinstance(entry, tuple) else (entry,)):
+            if name is not None:
+                owner[name] = d
+    return tuple(Shard(owner[n]) if n in owner and size > 1 else Replicate()
+                 for n, size in zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+
+
+def local_shape(shape: Sequence[int], places: Sequence[Any], mesh
+                ) -> Tuple[int, ...]:
+    """The shape of one rank's shard (``spec_for`` shards evenly only)."""
+    Shard = _api()[2]
+    out = list(shape)
+    for size, p in zip(tuple(mesh.shape), places):
+        if isinstance(p, Shard):
+            if out[p.dim] % size:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"divide {size}")
+            out[p.dim] //= size
+    return tuple(out)
+
+
+def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """Lay ``x`` out by logical axes; ``x`` itself outside a mesh scope.
+
+    Inside a scope ``x`` must be a DTensor on the scope's mesh: a plain
+    tensor here would be one rank's values taken for the whole, so it
+    raises."""
+    ctx = current()
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    if not _is_dtensor(x):
+        raise TypeError(f"shard{axes}: a plain {type(x).__name__} inside a "
+                        f"mesh scope; distribute it first")
+    want = placements(spec_for(x.shape, axes, rules, mesh), x.dim(), mesh)
+    if tuple(x.placements) == want:
+        return x
+    return x.redistribute(mesh, want)
+
+
+def sharding_for(shape: Sequence[int], axes: Sequence[Optional[str]],
+                 mesh, rules: Optional[Mapping[str, Any]] = None
+                 ) -> Tuple[Any, ...]:
+    """The DTensor placements of ``shape`` under ``rules`` on ``mesh``."""
+    spec = spec_for(shape, axes, merged_rules(rules), mesh)
+    return placements(spec, len(shape), mesh)
+
+
+def per_batch(fn, *args, outs: int = 1):
+    """``fn`` on each rank's rows of the leading (batch) dimension.
+
+    For the few operations DTensor has no sharding rule for that act row
+    by row (a stable sort, a one-hot, a roll along the sequence, the MoE
+    dispatch's index writes): :func:`run_local` with every tensor laid
+    out batch-sharded by the rules and replicated over every other mesh
+    axis, and each of ``fn``'s ``outs`` results laid out so.  Outside a
+    scope it is ``fn(*args)``."""
+    if current() is None:
+        return fn(*args)
+    ref = next(a for a in args if isinstance(a, torch.Tensor))
+    lead = scope_spec((ref.shape[0],), ("batch",))
+    return run_local(fn, args, [lead] * len(args), [lead] * outs)
+
+
+def chunk_of(entry: Any, length: int) -> Tuple[Tuple[int, ...], int, int]:
+    """(mesh dims, lo, hi): this rank's chunk ``[lo, hi)`` of a dimension
+    of ``length`` laid out by one spec ``entry`` (a mesh-axis name, a
+    tuple of them, or None) on the scope's mesh; no mesh dims and the
+    whole ``[0, length)`` outside a scope, for None, or where the axes'
+    extent is 1."""
+    ctx = current()
+    if ctx is None or entry is None:
+        return (), 0, length
+    mesh = ctx[0]
+    names = entry if isinstance(entry, tuple) else (entry,)
+    dims = tuple(mesh.mesh_dim_names.index(n) for n in names)
+    index, count = 0, 1
+    for d in dims:                                 # major-to-minor
+        size = mesh.size(d)
+        index = index * size + mesh.get_local_rank(d)
+        count *= size
+    if count == 1:
+        return (), 0, length
+    step = length // count
+    return dims, index * step, (index + 1) * step
+
+
+def local_range(shape: Sequence[int], axes: Sequence[Optional[str]],
+                dim: int) -> Tuple[Tuple[int, ...], int, int]:
+    """(mesh dims, lo, hi): this rank's chunk ``[lo, hi)`` of dimension
+    ``dim`` of a tensor of ``shape`` laid out by logical ``axes`` under
+    the scope (:func:`chunk_of` of that dimension's spec entry); the
+    whole dimension and no mesh dims outside a scope."""
+    return chunk_of(scope_spec(shape, axes)[dim], shape[dim])
+
+
+def reshape(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``x.reshape(shape)``.  A DTensor is first replicated over the mesh
+    dims that shard it where the reshape cannot carry the shard: a merged
+    dim sharded past its first member, or a split dim whose first part
+    does not divide the mesh extent (DTensor refuses both views).  Its
+    gradient is reshaped back the same way."""
+    if not _is_dtensor(x):
+        return x.reshape(shape)
+    return _Reshape.apply(x, tuple(shape))
+
+
+class _Reshape(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, shape):
+        ctx.shape = tuple(x.shape)
+        return _carry_reshape(x, shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _carry_reshape(g, ctx.shape), None
+
+
+def _carry_reshape(x, shape: Tuple[int, ...]):
+    _, Replicate, Shard, _ = _api()
+    shape = tuple(shape)
+    if -1 in shape:
+        known = math.prod(s for s in shape if s != -1)
+        shape = tuple(x.numel() // known if s == -1 else s for s in shape)
+    # group input dims with the output dims they become (dims merge or
+    # split left to right; equal sizes pair off)
+    i = j = 0
+    bad = set()
+    src, dst = tuple(x.shape), shape
+    while i < len(src) and j < len(dst):
+        a, b, gi, gj = src[i], dst[j], [i], [j]
+        while a != b:
+            if a < b:
+                i += 1
+                a *= src[i]
+                gi.append(i)
+            else:
+                j += 1
+                b *= dst[j]
+                gj.append(j)
+        for m, p in enumerate(x.placements):
+            if isinstance(p, Shard) and p.dim in gi:
+                extent = x.device_mesh.size(m)
+                if p.dim != gi[0] or (len(gj) > 1 and dst[gj[0]] % extent):
+                    bad.add(m)
+        i, j = i + 1, j + 1
+    if bad:
+        x = x.redistribute(x.device_mesh,
+                           [Replicate() if m in bad else p
+                            for m, p in enumerate(x.placements)])
+    return x.reshape(shape)
+
+
+def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``x[..., index]`` for an integer ``index`` of ``x``'s leading shape
+    (``torch.gather`` on the last dim).  Where the rules shard ``x``'s
+    last dim as "vocab", each rank gathers from its own chunk (zero for an
+    index outside it) and the partial values are summed across the chunk's
+    mesh axes — what DTensor's masked gather does, without its mask
+    buffer (which meta tensors cannot hold)."""
+    if current() is None:
+        return torch.gather(x, -1, index.long()[..., None])[..., 0]
+    vocab = scope_spec((x.shape[-1],), ("vocab",))[0]
+    dims, lo, hi = chunk_of(vocab, x.shape[-1])
+    lead = scope_spec(index.shape, ("batch",) + (None,) * (index.dim() - 1))
+
+    def gather(t, i):
+        i = i.long()
+        if not dims:
+            return torch.gather(t, -1, i[..., None])[..., 0]
+        inside = (i >= lo) & (i < hi)
+        g = torch.gather(t, -1, torch.where(inside, i - lo, 0)[..., None])
+        return torch.where(inside, g[..., 0], torch.zeros_like(g[..., 0]))
+
+    xspec = lead + (None,) * (x.dim() - 1 - len(lead)) + (
+        vocab if dims else None,)
+    return replicate(run_local(gather, (x, index), (xspec, lead), (lead,),
+                               partial=dims), dims)
+
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+def run_local(fn, args: Sequence[Any], specs: Sequence[Optional[Spec]],
+              out_specs: Sequence[Spec], partial: Sequence[int] = ()):
+    """``fn`` on each rank's shards, for maths that is independent along
+    the split dimensions (per batch row, per head): DTensor's
+    ``local_map``, with layouts given as specs.
+
+    Outside a scope it is ``fn(*args)``.  Inside one each tensor argument
+    is laid out by its spec (a tuple of mesh-axis entries per dimension,
+    as :func:`spec_for` returns; a spec of None keeps a DTensor's layout
+    — an in-place buffer; a plain tensor is a value the model made, the
+    same on every rank), ``fn`` runs on the local shards, and its tensor
+    results (one per entry of ``out_specs``: a tensor for one, else a
+    tuple) come back as DTensors laid out by ``out_specs`` and, over the
+    mesh dims in ``partial``, as partial sums (each rank summed its own
+    part of the work; the caller's next ``shard`` or :func:`replicate`
+    adds them up).  An argument replicated over a mesh dim the results
+    are split or partial over gets a ``Partial`` gradient there: each
+    rank saw only its part of the work."""
+    ctx = current()
+    if ctx is None:
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ctx[0]
+    DTensor, Replicate, _, Partial = _api()
+    outs = [[Partial() if m in partial else p
+             for m, p in enumerate(placements(s, len(s), mesh))]
+            for s in out_specs]
+    split = {m for pl in outs for m, p in enumerate(pl)
+             if not isinstance(p, Replicate)}
+    rep = (Replicate(),) * mesh.ndim
+    dargs, ins, grads = [], [], []
+    for a, spec in zip(args, specs):
+        if isinstance(a, torch.Tensor):
+            if not _is_dtensor(a):
+                a = DTensor.from_local(a, mesh, rep, run_check=False)
+            want = (tuple(a.placements) if spec is None
+                    else placements(spec, a.dim(), mesh))
+            ins.append(want)
+            grads.append(tuple(
+                Partial() if m in split and isinstance(p, Replicate) else p
+                for m, p in enumerate(want)))
+        else:
+            ins.append(None)
+            grads.append(None)
+        dargs.append(a)
+
+    def local(*xs):
+        # DTensor views its local shards with ``view``, which a transposed
+        # shard refuses: results and the gradients leaving the region are
+        # made contiguous
+        out = fn(*(_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor)
+                   else x for x in xs))
+        if isinstance(out, tuple):
+            return tuple(t.contiguous() for t in out)
+        return out.contiguous()
+
+    return local_map(local, outs[0] if len(outs) == 1 else tuple(outs),
+                     ins, grads, mesh, redistribute_inputs=True)(*dargs)
+
+
+def scope_spec(shape: Sequence[int], axes: Sequence[Optional[str]]) -> Spec:
+    """``spec_for`` under the scope's rules and mesh, padded with None to
+    one entry per dim (all None outside a scope)."""
+    ctx = current()
+    if ctx is None:
+        return (None,) * len(shape)
+    mesh, rules = ctx
+    spec = spec_for(shape, axes, rules, mesh)
+    return spec + (None,) * (len(shape) - len(spec))
+
+
+def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]``: rows of a (V, d) table for integer ``ids``.  Inside
+    a scope each rank looks up its chunk of the vocabulary (the rules'
+    "vocab" axes; the table all-gathered over any others), zero for an id
+    outside it, and the partial rows are summed across the chunk's mesh
+    axes by the caller's next ``shard``."""
+    if current() is None:
+        return table[ids]
+    table = grad_as_input(table)
+    V = table.shape[0]
+    vocab = scope_spec((V,), ("vocab",))[0]
+    dims, lo, hi = chunk_of(vocab, V)
+    lead = scope_spec(ids.shape, ("batch",) + (None,) * (ids.dim() - 1))
+
+    def rows(t, i):
+        if not dims:
+            return t[i]
+        i = i.long()
+        inside = (i >= lo) & (i < hi)
+        out = t[torch.where(inside, i - lo, 0)]
+        return torch.where(inside[..., None], out, torch.zeros_like(out))
+
+    return run_local(rows, (table, ids), ((vocab if dims else None,), lead),
+                     (lead,), partial=dims)
+
+def replicate(x: torch.Tensor, dims: Optional[Sequence[int]] = None
+              ) -> torch.Tensor:
+    """``x`` replicated over the mesh dims ``dims`` (default: all) — an
+    all-reduce of a partial sum or mean, an all-gather of a shard — its
+    other placements kept; a plain tensor as it is.  Used where a
+    reduction's partial result meets other values: DTensor does not turn
+    one kind of partial into another, nor a shard into a partial."""
+    if not _is_dtensor(x):
+        return x
+    Replicate = _api()[1]
+    want = tuple(Replicate() if dims is None or m in dims else p
+                 for m, p in enumerate(x.placements))
+    return x if tuple(x.placements) == want else \
+        x.redistribute(x.device_mesh, want)
+
+
+class _GradLayout(torch.autograd.Function):
+    """The identity, whose gradient is laid out as its input was."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.layout = (x.device_mesh, tuple(x.placements))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, want = ctx.layout
+        return g if tuple(g.placements) == want else \
+            g.redistribute(mesh, want)
+
+
+def grad_as_input(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient arrives laid out as ``x`` is.  For a
+    parameter used twice (a tied embedding: the lookup and the LM head),
+    so that autograd adds two gradients of one layout — DTensor may give
+    each use's gradient another one and cannot add every pair (a shard to
+    a partial sum).  A plain tensor is returned as it is."""
+    return _GradLayout.apply(x) if _is_dtensor(x) else x

@@ -2,20 +2,28 @@
 
 Each factory closes over static configuration and returns a function of
 tensors.  Where the JAX package jits the step, the port calls it eagerly;
-the serve step runs under ``torch.inference_mode()``.  The train step
+the serve step runs under ``torch.inference_mode()`` (``no_grad()`` on
+a mesh).  The train step
 takes its gradients with ``torch.autograd.grad`` and updates the
 parameters and optimizer state in place (``adamw.update_``): the JAX
 trainer donates both to its jitted step, so neither package holds two
 copies of them.
+
+On a mesh the trees hold DTensors (``repro_torch.dist.partition``) and
+each step runs under ``implicit_replication()``: the plain tensors the
+models make (positions, masks, zeros) meet DTensors as replicated
+values, as constants do in a GSPMD program.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Mapping, Optional
 
 import torch
 
+from .sharding import _is_dtensor, per_batch
 from ..models.model import (DEFAULT_RUN, RunConfig, decode_step, forward,
                             loss_fn)
 from ..models.params import (resolve_device, torch_dtype, tree_leaves,
@@ -32,12 +40,12 @@ def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
     accumulates gradients in ``run.accum_dtype`` (bfloat16 halves the
     accumulator memory), then divides and casts to float32 as the JAX
     package does.  The parameters and the optimizer state are updated in
-    place and returned.  ``grad_shardings`` (a layout for the gradient
-    tree) comes with the DTensor slice; until then it must be None.
+    place and returned.  ``grad_shardings`` (a layout tree,
+    ``partition.model_shardings``) redistributes the gradient tree to
+    those layouts before the optimizer update; without it, on a mesh,
+    each gradient takes its parameter's layout (the update is in
+    place).
     """
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings needs the DTensor slice (ROADMAP.md, Queue 1)")
     opt_cfg = opt_cfg or adamw.OptimConfig()
 
     def grads_of(params, batch):
@@ -55,6 +63,10 @@ def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
         # parameters on the card of a host without one: raise, never
         # fall back to the CPU
         resolve_device(tree_leaves(params)[0].device)
+        with _mesh_context(params):
+            return update(params, opt, batch)
+
+    def update(params, opt, batch):
         mb = max(1, int(run.microbatch))
         if mb == 1:
             grads, metrics = grads_of(params, batch)
@@ -62,8 +74,7 @@ def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
             acc_dt = torch_dtype(run.accum_dtype)
             grads = metrics = None
             for i in range(mb):
-                one = {k: t.reshape((mb, t.shape[0] // mb) + t.shape[1:])[i]
-                       for k, t in batch.items()}
+                one = {k: _microbatch(t, mb, i) for k, t in batch.items()}
                 g, m = grads_of(params, one)
                 g = tree_map(lambda a: a.to(acc_dt), g)
                 grads = g if grads is None else tree_map(torch.add, grads, g)
@@ -72,17 +83,67 @@ def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
                 del g
             grads = tree_map(lambda a: (a / mb).float(), grads)
             metrics = {k: v / mb for k, v in metrics.items()}
+        if grad_shardings is not None:
+            from .partition import distribute
+            grads = distribute(grads, grad_shardings)
+        elif _on_mesh(params):
+            # the in-place update needs each gradient laid out as its
+            # parameter (autograd may leave it partial or sharded otherwise)
+            grads = tree_map(
+                lambda g, p: g if tuple(g.placements) == tuple(p.placements)
+                else g.redistribute(p.device_mesh, p.placements),
+                grads, params)
         params, opt, opt_metrics = adamw.update_(opt_cfg, grads, opt, params)
         return params, opt, {**metrics, **opt_metrics}
 
     return step
 
 
+def _microbatch(t: torch.Tensor, mb: int, i: int) -> torch.Tensor:
+    """Microbatch ``i`` of ``mb``: the i-th of ``mb`` equal row blocks.
+    On a mesh each rank takes the i-th block of its own rows (DTensor
+    cannot split a sharded dim in place), so a microbatch holds other
+    rows than off a mesh; the accumulated gradient and the averaged
+    metrics are the same sums."""
+    def block(x):
+        if x.shape[0] % mb:
+            raise ValueError(f"microbatch {mb} does not divide the "
+                             f"{x.shape[0]} rows of a batch shard")
+        return x.reshape((mb, x.shape[0] // mb) + x.shape[1:])[i]
+    return per_batch(block, t)
+
+
+def _on_mesh(params) -> bool:
+    """Whether ``params`` hold DTensors: its first leaf, reached without
+    walking the tree (a step asks twice)."""
+    while isinstance(params, Mapping):
+        params = params[min(params)]
+    return _is_dtensor(params)
+
+
+def _mesh_context(params):
+    """``implicit_replication()`` when ``params`` are DTensors."""
+    if _on_mesh(params):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        return implicit_replication()
+    return contextlib.nullcontext()
+
+
+def _no_grad(params):
+    """``inference_mode()``; ``no_grad()`` for DTensors, whose views
+    inference mode refuses (a DTensor made outside it cannot be viewed
+    inside it)."""
+    if _on_mesh(params):
+        return torch.no_grad()
+    return torch.inference_mode()
+
+
 def make_prefill_step(cfg, run: RunConfig = DEFAULT_RUN):
     """(params, batch) -> logits (B, S, V); the cache-less prompt pass."""
 
     def step(params, batch):
-        with torch.inference_mode():
+        with _no_grad(params), _mesh_context(params):
             logits, _ = forward(cfg, params, batch, run)
         return logits
 
@@ -129,7 +190,7 @@ def make_serve_step(cfg, run: RunConfig = DEFAULT_RUN, greedy: bool = False,
     run = apply_kernel_configs(cfg, run, kernel_configs)
 
     def step(params, cache, tokens, pos):
-        with torch.inference_mode():
+        with _no_grad(params), _mesh_context(params):
             logits, new_cache = decode_step(cfg, params, cache, tokens, pos,
                                             run)
             if greedy:

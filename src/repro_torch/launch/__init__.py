@@ -1,6 +1,6 @@
-"""Launchers: ``serve.py`` and ``train.py``, the serving and training
-entry points.
+"""Launchers: ``serve.py`` and ``train.py`` (the serving and training
+entry points), ``mesh.py`` (device meshes) and ``dryrun.py`` (the
+fake-world dry-run and its roofline).
 
-Import-light: no submodule is imported eagerly.  The JAX package's mesh
-and dry-run launchers come with the DTensor slice (ROADMAP.md, Queue 1).
+Import-light: no submodule is imported eagerly.
 """

@@ -17,6 +17,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import (local_range, reshape, run_local, scope_spec,
+                             shard)
 from .config import ModelConfig
 from .params import ParamDef
 
@@ -27,8 +29,13 @@ def _proj(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     """Contract the last ``n_in`` dims of ``x`` with the first ``n_in`` of
     ``w`` (one matmul; e.g. ``bsd,dhk->bshk`` with n_in = 1)."""
     lead, k = x.shape[:x.dim() - n_in], w.shape[:n_in]
-    out = x.reshape(*lead, -1) @ w.reshape(math.prod(k), -1)
-    return out.reshape(*lead, *w.shape[n_in:])
+    # folded to one 2-D product, as matmul folds it; on a mesh the fold
+    # goes through ``reshape``, which first gathers a lead dim that DTensor
+    # cannot fold while it is split (the sequence of sequence-parallel
+    # attention's output)
+    out = reshape(x, (math.prod(lead), math.prod(k))) \
+        @ reshape(w, (math.prod(k), -1))
+    return reshape(out, (*lead, *w.shape[n_in:]))
 
 
 # ---------------------------------------------------------------------------
@@ -96,11 +103,12 @@ def attention_defs(cfg: ModelConfig) -> Dict[str, ParamDef]:
 
 
 def _grouped_attention(q, k, v, *, q_positions, k_positions,
-                       k_valid_len=None) -> torch.Tensor:
+                       k_valid_len=None, with_lse: bool = False):
     """q: (B,S,KV,G,hd); k/v: (B,T,KV,hd) -> (B,S,KV,G,hd), float32.
 
     Causal mask via explicit positions; ``k_valid_len`` additionally masks
-    cache slots beyond the current decode position.
+    cache slots beyond the current decode position.  ``with_lse`` also
+    returns the scores' log-sum-exp (B,KV,G,S), for :func:`merge_chunks`.
     """
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bskgh,btkh->bkgst", q.float(), k.float()) * scale
@@ -112,7 +120,22 @@ def _grouped_attention(q, k, v, *, q_positions, k_positions,
                        )[:, None, None, None, :]
     s = torch.where(mask, s, _NEG)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    out = torch.einsum("bkgst,btkh->bskgh", p, v.float())
+    return (out, torch.logsumexp(s, dim=-1)) if with_lse else out
+
+
+def merge_chunks(parts: torch.Tensor, lse: torch.Tensor,
+                 spec: str) -> torch.Tensor:
+    """Attention over R chunks of the keys, merged into attention over
+    them all: ``parts`` (R, ...) is each chunk's output, normalised over
+    its own keys, ``lse`` (R, ...) its scores' log-sum-exp, and ``spec``
+    the einsum subscripts of the two without R (``"bkgs,bskgh"``; ``z``
+    is R's).  A
+    chunk whose keys are all masked has an lse of about ``_NEG`` and
+    weight 0."""
+    w = torch.softmax(lse, dim=0)
+    lhs, rhs = spec.split(",")
+    return torch.einsum(f"z{lhs},z{rhs}->{rhs}", w, parts)
 
 
 def _chunked_attention(q, k, v, *, q_positions, k_positions,
@@ -186,51 +209,118 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
         k = k + p["bk"]
         v = v + p["bv"]
 
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
-
-    if cache is None and mode == "expanded" and G > 1:
-        k = torch.repeat_interleave(k, G, dim=2)
-        v = torch.repeat_interleave(v, G, dim=2)
-        KV_eff, G_eff = H, 1
-    else:
-        KV_eff, G_eff = KV, G
-    q = q.reshape(B, S, KV_eff, G_eff, hd)
-
+    expand = cache is None and mode == "expanded" and G > 1
+    KV_eff, G_eff = (H, 1) if expand else (KV, G)
+    q = reshape(q, (B, S, KV_eff, G_eff, hd))
+    q = shard(q, *Q_AXES)
     if cache is None:
-        if attn_chunk and k.shape[1] % attn_chunk == 0 \
-                and k.shape[1] > attn_chunk:
-            out = _chunked_attention(q, k, v, q_positions=positions,
-                                     k_positions=positions,
-                                     chunk=attn_chunk)
-        else:
-            out = _grouped_attention(q, k, v, q_positions=positions,
-                                     k_positions=positions)
+        k = shard(k, "batch", None, "kv_heads", None)
+        v = shard(v, "batch", None, "kv_heads", None)
+
+    # the attention itself (rotary embedding, K/V expansion, scores,
+    # softmax, P.V) runs on each rank's batch rows and heads: q's layout
+    # decides them, K/V and the positions follow (run_local)
+    qs = scope_spec(q.shape, Q_AXES)
+    b, s_, h = qs[:3]
+    theta = cfg.rope_theta
+    if cache is None:
+        # expanded K/V are repeated on each rank, then cut to q's heads
+        _, lo, hi = local_range(q.shape, Q_AXES, 2)
+        kspec = (b, None, None if expand else h)
+
+        def core(q, k, v, qpos, kpos):
+            q = apply_rope(q, qpos, theta)
+            k = apply_rope(k, kpos, theta)
+            if expand:
+                k = torch.repeat_interleave(k, G, dim=2)[:, :, lo:hi]
+                v = torch.repeat_interleave(v, G, dim=2)[:, :, lo:hi]
+            if attn_chunk and k.shape[1] % attn_chunk == 0 \
+                    and k.shape[1] > attn_chunk:
+                return _chunked_attention(q, k, v, q_positions=qpos,
+                                          k_positions=kpos, chunk=attn_chunk)
+            return _grouped_attention(q, k, v, q_positions=qpos,
+                                      k_positions=kpos)
+
+        out = run_local(core, (q, k, v, positions, positions),
+                        (qs, kspec, kspec, (b, s_), (b, None)), (qs,))
         new_cache = None
     else:
-        # decode: S == 1; insert k/v at cache_pos, attend over the buffer
-        ck = write_clamped(cache["k"], k, cache_pos)
-        cv = write_clamped(cache["v"], v, cache_pos)
-        T = ck.shape[1]
-        k_positions = torch.arange(T, dtype=torch.int32,
-                                   device=x.device).expand(B, T)
-        valid = torch.full((B,), int(cache_pos) + 1, dtype=torch.int32,
-                           device=x.device)
-        out = _grouped_attention(q, ck, cv, q_positions=positions,
-                                 k_positions=k_positions, k_valid_len=valid)
+        # decode: S == 1; insert k/v at cache_pos, attend over the buffer.
+        # The cache keeps its layout (written in place)
+        pos = int(cache_pos)
         new_cache = cache
+        if local_range(cache["k"].shape, CACHE_AXES, 1)[0]:
+            out = _decode_time_split(q, k, v, positions, cache, pos, theta)
+        else:
+            def core(q, k, v, qpos, ck, cv):
+                q = apply_rope(q, qpos, theta)
+                k = apply_rope(k, qpos, theta)
+                ck = write_clamped(ck, k, pos)
+                cv = write_clamped(cv, v, pos)
+                Bl, T = ck.shape[:2]
+                k_positions = torch.arange(T, dtype=torch.int32,
+                                           device=q.device).expand(Bl, T)
+                valid = torch.full((Bl,), pos + 1, dtype=torch.int32,
+                                   device=q.device)
+                return _grouped_attention(q, ck, cv, q_positions=qpos,
+                                          k_positions=k_positions,
+                                          k_valid_len=valid)
 
-    out = out.reshape(B, S, H, hd).to(x.dtype)
-    return _proj(out, p["wo"], 2), new_cache
+            out = run_local(core, (q, k, v, positions, cache["k"],
+                                   cache["v"]),
+                            (qs, (b, None, h), (b, None, h), (b, s_), None,
+                             None), (qs,))
+
+    out = reshape(out, (B, S, H, hd)).to(x.dtype)
+    return shard(_proj(out, p["wo"], 2), "batch", "seq", "embed"), new_cache
+
+
+def _decode_time_split(q, k, v, positions, cache, pos: int, theta: float):
+    """Decode attention over a KV cache whose time dim the rules split
+    over mesh axes (``seq_kv``).  Each rank holds a chunk ``[lo, hi)`` of
+    the time steps: the rank whose chunk holds the (clamped) write index
+    writes k/v there, every rank attends over its own chunk, and the
+    chunks' outputs are merged by their log-sum-exp (an all-gather of one
+    query's outputs over the time axes).  Returns (B, 1, KV, G, hd)."""
+    cs = scope_spec(cache["k"].shape, CACHE_AXES)
+    b, t, h = cs[:3]
+    _, lo, hi = local_range(cache["k"].shape, CACHE_AXES, 1)
+    at = min(max(pos, 0), cache["k"].shape[1] - 1)    # write_clamped's index
+
+    def core(q, k, v, qpos, ck, cv):
+        q = apply_rope(q, qpos, theta)
+        k = apply_rope(k, qpos, theta)
+        if lo <= at < hi:
+            write_clamped(ck, k, at - lo)
+            write_clamped(cv, v, at - lo)
+        kpos = torch.arange(lo, hi, dtype=torch.int32,
+                            device=q.device).expand(ck.shape[0], hi - lo)
+        # the causal mask (time <= pos) is the valid length pos + 1
+        out, lse = _grouped_attention(q, ck, cv, q_positions=qpos,
+                                      k_positions=kpos, with_lse=True)
+        return out[None], lse[None]
+
+    parts, lse = run_local(core, (q, k, v, positions, cache["k"], cache["v"]),
+                           ((b, None, h), (b, None, h), (b, None, h),
+                            (b, None), None, None),
+                           ((t, b, None, h), (t, b, h)))
+    return run_local(lambda o, l: merge_chunks(o, l, "bkgs,bskgh"),
+                     (parts, lse), ((None, b, None, h), (None, b, h)),
+                     ((b, None, h),))
+
+
+#: the logical axes of a KV cache leaf (B, T, KV, hd) and of the grouped
+#: query (B, S, KV, G, hd)
+CACHE_AXES = ("batch", "seq_kv", "kv_heads", "head_dim")
+Q_AXES = ("batch", "seq_attn", "kv_heads", None, None)
 
 
 def attention_cache_defs(cfg: ModelConfig, batch: int, max_len: int
                          ) -> Dict[str, ParamDef]:
     KV, hd = cfg.num_kv_heads, cfg.resolved_head_dim
     shape = (batch, max_len, KV, hd)
-    axes = ("batch", "seq_kv", "kv_heads", "head_dim")
-    return {"k": ParamDef(shape, axes, init="zeros"),
-            "v": ParamDef(shape, axes, init="zeros")}
+    return {"k": ParamDef(shape, CACHE_AXES, init="zeros"),
+            "v": ParamDef(shape, CACHE_AXES, init="zeros")}
 
 
 # ---------------------------------------------------------------------------
@@ -256,4 +346,5 @@ def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         h = F.silu(x @ p["wg"]) * up
     else:                   # classic 2-matrix GELU MLP (jax.nn.gelu's tanh form)
         h = F.gelu(up, approximate="tanh")
+    h = shard(h, "batch", "seq", "mlp")
     return h @ p["wo"]

@@ -19,8 +19,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import local_range, run_local, scope_spec, shard
 from .config import ModelConfig
-from .layers import _proj, apply_rope, norm_defs, rms_norm, write_clamped
+from .layers import (_proj, apply_rope, merge_chunks, norm_defs, rms_norm,
+                     write_clamped)
 from .params import ParamDef
 
 _NEG = -1e30
@@ -49,24 +51,29 @@ def mla_defs(cfg: ModelConfig) -> Dict[str, Any]:
     return defs
 
 
-def _project_q(cfg: ModelConfig, p, x, positions):
-    nope = cfg.qk_nope_dim
+def _project_q(cfg: ModelConfig, p, x):
+    """The query projection (B, S, H, nope + rope), before its rotary
+    half is rotated (the attention core does that on each rank)."""
     if cfg.q_lora_rank:
         ql = rms_norm(_proj(x, p["wq_a"], 1), p["q_norm"], cfg.norm_eps)
         q = _proj(ql, p["wq_b"], 1)
     else:
         q = _proj(x, p["wq"], 1)
+    return shard(q, "batch", "seq", "heads", None)
+
+
+def _rope_q(cfg: ModelConfig, q, positions):
+    nope = cfg.qk_nope_dim
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
-    return q_nope, q_rope
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
 
 
-def _project_latent(cfg: ModelConfig, p, x, positions):
+def _project_latent(cfg: ModelConfig, p, x):
+    """(normalised latent c_kv, the shared rotary key before rotation)."""
     kvr = cfg.kv_lora_rank
     kv = _proj(x, p["wkv_a"], 1)
     c_kv, k_rope = kv[..., :kvr], kv[..., kvr:]
     c_kv = rms_norm(c_kv, p["kv_norm"], cfg.norm_eps)
-    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)   # shared head
     return c_kv, k_rope
 
 
@@ -77,50 +84,119 @@ def apply_mla(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """x: (B, S, d).  With ``cache`` (decode): writes the latent and the
     rotary key at ``cache_pos`` in place and attends over the whole
-    buffer, the rows up to each query's position valid; returns the cache."""
-    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    buffer, the rows up to each query's position valid; returns the cache.
 
-    q_nope, q_rope = _project_q(cfg, p, x, positions)
-    c_kv, k_rope = _project_latent(cfg, p, x, positions)
+    The attention (rotary halves, scores, softmax, values) runs on each
+    rank's batch rows and heads (``run_local``); the projections are
+    DTensor products."""
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    theta = cfg.rope_theta
+
+    q = _project_q(cfg, p, x)
+    c_kv, k_rope = _project_latent(cfg, p, x)
+    qs = scope_spec(q.shape, ("batch", "seq", "heads", None))
+    b, s_, h = qs[:3]
 
     if cache is None:
         # train/prefill: expand K and V per head
         k_nope = _proj(c_kv, p["wk_b"], 1)                   # (B, T, H, k)
         v = _proj(c_kv, p["wv_b"], 1)
-        s = (torch.einsum("bshk,bthk->bhst", q_nope.float(), k_nope.float())
-             + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                            k_rope.float())) * scale
-        mask = positions[:, None, :, None] >= positions[:, None, None, :]
-        s = torch.where(mask, s, _NEG)
-        probs = torch.softmax(s, dim=-1)
-        out = torch.einsum("bhst,bthk->bshk", probs, v.float())
+
+        def core(q, k_rope, k_nope, v, qpos, kpos):
+            q_nope, q_rope = _rope_q(cfg, q, qpos)
+            k_rope = apply_rope(k_rope, kpos, theta)          # shared head
+            s = (torch.einsum("bshk,bthk->bhst", q_nope.float(),
+                              k_nope.float())
+                 + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                k_rope.float())) * scale
+            mask = qpos[:, None, :, None] >= kpos[:, None, None, :]
+            s = torch.where(mask, s, _NEG)
+            probs = torch.softmax(s, dim=-1)
+            return torch.einsum("bhst,bthk->bshk", probs, v.float())
+
+        out = run_local(core, (q, k_rope, k_nope, v, positions, positions),
+                        (qs, (b,), (b, None, h), (b, None, h), (b, s_),
+                         (b, None)), (qs,))
         new_cache = None
     else:
-        # decode: absorbed-weight attention over the latent cache
-        cc = write_clamped(cache["c_kv"], c_kv, cache_pos)
-        cr = write_clamped(cache["k_rope"], k_rope, cache_pos)
-        T = cc.shape[1]
-        # absorb wk_b into q: q_lat (B, S, H, kvr), in the param dtype
-        q_lat = torch.einsum("bshk,rhk->bshr", q_nope, p["wk_b"])
-        s = (torch.einsum("bshr,btr->bhst", q_lat.float(), cc.float())
-             + torch.einsum("bshk,btk->bhst", q_rope.float(),
-                            cr.float())) * scale
-        valid = torch.arange(T, device=x.device)[None, None, None, :] <= \
-            positions[:, None, :, None]
-        s = torch.where(valid, s, _NEG)
-        probs = torch.softmax(s, dim=-1)
-        o_lat = torch.einsum("bhst,btr->bshr", probs, cc.float())
-        out = torch.einsum("bshr,rhk->bshk", o_lat.to(x.dtype), p["wv_b"])
+        # decode: absorbed-weight attention over the latent cache, written
+        # in place.  Where the rules split its time dim (seq_kv), each rank
+        # attends over its chunk [lo, hi) and the chunks are merged by
+        # their log-sum-exp
+        pos = int(cache_pos)
+        dtype = x.dtype
+        tdims, lo, hi = local_range(cache["c_kv"].shape, LATENT_AXES, 1)
+        at = min(max(pos, 0), cache["c_kv"].shape[1] - 1)
+
+        def attend(q, c_kv, k_rope, qpos, cc, cr, wk_b):
+            """(o_lat (B, S, H, kvr) float32, masked scores (B, H, S, T))
+            over this rank's chunk of the cache."""
+            q_nope, q_rope = _rope_q(cfg, q, qpos)
+            k_rope = apply_rope(k_rope, qpos, theta)
+            if lo <= at < hi:
+                write_clamped(cc, c_kv, at - lo)
+                write_clamped(cr, k_rope, at - lo)
+            # absorb wk_b into q: q_lat (B, S, H, kvr), in the param dtype
+            q_lat = torch.einsum("bshk,rhk->bshr", q_nope, wk_b)
+            s = (torch.einsum("bshr,btr->bhst", q_lat.float(), cc.float())
+                 + torch.einsum("bshk,btk->bhst", q_rope.float(),
+                                cr.float())) * scale
+            valid = torch.arange(lo, hi, device=q.device)[
+                None, None, None, :] <= qpos[:, None, :, None]
+            s = torch.where(valid, s, _NEG)
+            probs = torch.softmax(s, dim=-1)
+            return torch.einsum("bhst,btr->bshr", probs, cc.float()), s
+
+        args = (q, c_kv, k_rope, positions, cache["c_kv"], cache["k_rope"],
+                p["wk_b"])
+        if not tdims:
+            def core(*a):
+                o_lat, _ = attend(*a[:-1])
+                return torch.einsum("bshr,rhk->bshk", o_lat.to(dtype), a[-1])
+
+            out = run_local(
+                core, args + (p["wv_b"],),
+                (qs, (b,), (b,), (b, s_), None, None, (None, h), (None, h)),
+                (qs,))
+        else:
+            t = scope_spec(cache["c_kv"].shape, LATENT_AXES)[1]
+            # the heads stay split only over mesh axes the time dim is not
+            hq = None if _names(h) & _names(t) else h
+
+            def part(*a):
+                o_lat, s = attend(*a)
+                return o_lat[None], torch.logsumexp(s, dim=-1)[None]
+
+            parts, lse = run_local(
+                part, args, ((b, None, hq), (b,), (b,), (b, None), None, None,
+                             (None, hq)), ((t, b, None, hq), (t, b, hq)))
+            o_lat = run_local(lambda o, l: merge_chunks(o, l, "bhs,bshr"),
+                              (parts, lse), ((None, b, None, hq),
+                                             (None, b, hq)), ((b, None, hq),))
+            out = run_local(
+                lambda o, w: torch.einsum("bshr,rhk->bshk", o.to(dtype), w),
+                (o_lat, p["wv_b"]), ((b, None, hq), (None, hq)),
+                ((b, None, hq),))
         new_cache = cache
 
-    return _proj(out.to(x.dtype), p["wo"], 2), new_cache
+    return shard(_proj(out.to(x.dtype), p["wo"], 2), "batch", "seq",
+                 "embed"), new_cache
+
+
+def _names(entry) -> set:
+    """The mesh axes of one spec entry."""
+    return set(entry if isinstance(entry, tuple) else (entry,)) - {None}
+
+
+#: the logical axes of a latent cache leaf (B, T, r)
+LATENT_AXES = ("batch", "seq_kv", None)
 
 
 def mla_cache_defs(cfg: ModelConfig, batch: int, max_len: int
                    ) -> Dict[str, ParamDef]:
     return {
-        "c_kv": ParamDef((batch, max_len, cfg.kv_lora_rank),
-                         ("batch", "seq_kv", None), init="zeros"),
-        "k_rope": ParamDef((batch, max_len, cfg.qk_rope_dim),
-                           ("batch", "seq_kv", None), init="zeros"),
+        "c_kv": ParamDef((batch, max_len, cfg.kv_lora_rank), LATENT_AXES,
+                         init="zeros"),
+        "k_rope": ParamDef((batch, max_len, cfg.qk_rope_dim), LATENT_AXES,
+                           init="zeros"),
     }

@@ -14,6 +14,11 @@ a weight matrix, the products JAX's ``dots_with_no_batch_dims_saveable``
 keeps) and recomputes the rest, attention's batched score and value
 products (``aten.bmm``) among them.  The loss (``loss_fn``) reads the
 MoE families' ``mtp`` tree for DeepSeek-style multi-token prediction.
+
+The JAX models' ``shard()`` annotations stand at the same places, with
+the same logical axes (``repro_torch.dist.sharding``): outside a mesh
+scope they return their argument; inside one the trees are DTensors and
+the annotations lay the activations out.
 """
 
 from __future__ import annotations
@@ -26,6 +31,8 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..dist.sharding import (embed_rows, grad_as_input, per_batch,
+                             replicate, shard, take_last)
 from .config import ModelConfig
 from .layers import (_proj, apply_attention, apply_mlp, attention_cache_defs,
                      attention_defs, mlp_defs, norm_defs, rms_norm)
@@ -233,7 +240,8 @@ def embed_inputs(cfg: ModelConfig, params, batch
     if cfg.input_mode == "embeddings":
         x = batch["embeds"].to(torch_dtype(cfg.param_dtype))
     else:
-        x = params["embed"][batch["tokens"]]
+        x = embed_rows(params["embed"], batch["tokens"])
+    x = shard(x, "batch", "seq", "embed")
     B, S = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -244,7 +252,8 @@ def embed_inputs(cfg: ModelConfig, params, batch
 
 def _head_logits(cfg: ModelConfig, params, x_normed,
                  run: RunConfig = DEFAULT_RUN) -> torch.Tensor:
-    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    head = (grad_as_input(params["embed"]).T if cfg.tie_embeddings
+            else params["head"])
     V = cfg.vocab_size
     hc = int(run.head_chunk)
     if 0 < hc < V and V % hc == 0:
@@ -257,7 +266,7 @@ def _head_logits(cfg: ModelConfig, params, x_normed,
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
-    return logits
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _logits(cfg: ModelConfig, params, x,
@@ -345,19 +354,20 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean token NLL in float32 (over ``mask``'s weight when given)."""
     lf = logits.float()
     lse = torch.logsumexp(lf, dim=-1)
-    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    gold = take_last(lf, labels)
     nll = lse - gold
     if mask is not None:
-        return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return nll.mean()
+        return replicate((nll * mask).sum()) / torch.clamp(
+            replicate(mask.sum()), min=1.0)
+    return replicate(nll.mean())
 
 
 def _chunk_nll(cfg: ModelConfig, params, h, labels, mask):
     """(summed masked NLL, mask weight) of one sequence chunk."""
     logits = _head_logits(cfg, params, h).float()
     lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
-    return ((lse - gold) * mask).sum(), mask.sum()
+    gold = take_last(logits, labels)
+    return replicate(((lse - gold) * mask).sum()), replicate(mask.sum())
 
 
 def _ce_from_hidden(cfg: ModelConfig, params, hidden, labels, mask,
@@ -404,12 +414,13 @@ def loss_fn(cfg: ModelConfig, params, batch,
         # DeepSeek-style multi-token prediction: one extra block predicts
         # token t+2 from [h_t ; embed(label_t)]
         x, positions = embed_inputs(cfg, params, batch)
-        emb_next = params["embed"][labels]
+        emb_next = shard(embed_rows(params["embed"], labels), "batch", "seq",
+                         "embed")
         h = _proj(torch.cat([x, emb_next], dim=-1), params["mtp"]["proj"], 1)
         h, _, _ = _attn_block(cfg, run, params["mtp"]["block"], h,
                               positions, "moe")
         h = rms_norm(h, params["mtp"]["norm"], cfg.norm_eps)
-        mtp_labels = torch.roll(labels, -1, dims=-1)
+        mtp_labels = per_batch(lambda t: torch.roll(t, -1, dims=-1), labels)
         mtp_mask = torch.ones(labels.shape, dtype=torch.float32,
                               device=labels.device)
         mtp_mask[:, -1] = 0.0
@@ -500,7 +511,8 @@ def decode_step(cfg: ModelConfig, params, cache, tokens_or_embeds,
     if cfg.input_mode == "embeddings":
         x = tokens_or_embeds.to(torch_dtype(cfg.param_dtype))
     else:
-        x = params["embed"][tokens_or_embeds]
+        x = shard(embed_rows(params["embed"], tokens_or_embeds), "batch",
+                  "seq", "embed")
     B = x.shape[0]
     pos = int(pos)
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)

@@ -8,7 +8,7 @@ derive:
                           on the target device,
   * ``abstract_params`` — tensors on the ``meta`` device (shapes and dtypes,
                           no storage),
-  * ``param_axes``      — the logical axes, for the distribution slice.
+  * ``param_axes``      — the logical axes (``repro_torch.dist``).
 
 The JAX package draws each leaf from ``fold_in(key, i)``, a stream torch
 cannot reproduce; :func:`params_from_numpy` carries a JAX parameter tree
@@ -198,18 +198,25 @@ def _flatten_tree(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 
 def params_from_numpy(tree: Mapping[str, Any],
-                      device: "torch.device | str | None" = None) -> Any:
+                      device: "torch.device | str | None" = None,
+                      shardings: Any = None) -> Any:
     """The port's parameter tree from numpy arrays, path for path.
 
     ``tree`` is a nested dict of arrays (the JAX package's parameter tree
     after ``np.asarray`` on each leaf) or a flat ``{'a/b/c': array}`` map.
     bfloat16 arrays (numpy dtype name ``bfloat16``) are carried over bit
-    for bit.  Returns the nested tree on ``device`` (default: the card).
+    for bit.  Returns the nested tree on ``device`` (default: the card),
+    or, with ``shardings`` (a layout tree of the same structure,
+    :mod:`repro_torch.dist.partition`), as DTensors on those layouts.
     """
     dev = resolve_device(device)
     flat = {p: _from_numpy(a).to(dev)
             for p, a in _flatten_tree(tree).items()}
-    return _unflatten(flat)
+    out = _unflatten(flat)
+    if shardings is not None:
+        from ..dist.partition import distribute
+        out = distribute(out, shardings)
+    return out
 
 
 def _unflatten(flat: Dict[str, Any]) -> Any:

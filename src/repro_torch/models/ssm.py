@@ -23,6 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import run_local, scope_spec, shard
 from .config import ModelConfig
 from .layers import _proj
 from .params import ParamDef
@@ -157,13 +158,24 @@ def apply_mamba(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     A = -torch.exp(p["A_log"].float())
     D = p["D"].float()
     z, xin, Bm, Cm, dt = _project(cfg, p, x)
+    # the convolutions and the scan run on each rank's batch rows and
+    # heads (run_local); the sequence is never split
+    xin = shard(xin, "batch", "seq", "ssm_heads", "ssm_pdim")
+    b, _, h = scope_spec(xin.shape, ("batch", None, "ssm_heads"))[:3]
+    convs = (p["conv_x"], p["conv_B"], p["conv_C"])
+    conv_specs = ((None, h), (), ())
 
     if state is None:
-        xin = _silu(_causal_conv(xin, p["conv_x"]))
-        Bm = _silu(_causal_conv(Bm, p["conv_B"]))
-        Cm = _silu(_causal_conv(Cm, p["conv_C"]))
-        y, _ = ssd_chunked(xin.float(), Bm.float(), Cm.float(), dt, A, D,
-                           cfg.ssm_chunk)
+        def mix(xin, Bm, Cm, dt, A, D, wx, wB, wC):
+            xin = _silu(_causal_conv(xin, wx))
+            Bm = _silu(_causal_conv(Bm, wB))
+            Cm = _silu(_causal_conv(Cm, wC))
+            return ssd_chunked(xin.float(), Bm.float(), Cm.float(), dt, A, D,
+                               cfg.ssm_chunk)[0]
+
+        y = run_local(mix, (xin, Bm, Cm, dt, A, D) + convs,
+                      ((b, None, h), (b,), (b,), (b, None, h), (h,), (h,))
+                      + conv_specs, ((b, None, h),))
         new_state = None
     else:
         # decode: roll conv windows, single-step recurrence
@@ -173,23 +185,34 @@ def apply_mamba(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         def conv(buf, w):                                # in the param dtype
             return torch.einsum("bw...,w...->b...", buf, w)
 
-        cx = roll(state["conv_x"], xin)
-        cB = roll(state["conv_B"], Bm)
-        cC = roll(state["conv_C"], Cm)
-        xt = _silu(conv(cx, p["conv_x"]))                # (B,H,P)
-        bt = _silu(conv(cB, p["conv_B"]))                # (B,N)
-        ct = _silu(conv(cC, p["conv_C"]))                # (B,N)
-        dtt = dt[:, 0]                                   # (B,H)
-        dA = torch.exp(dtt * A)                          # (B,H)
-        h = dA[:, :, None, None] * state["h"] + torch.einsum(
-            "bh,bn,bhp->bhpn", dtt, bt.float(), xt.float())
-        yt = torch.einsum("bn,bhpn->bhp", ct.float(), h) \
-            + D[:, None] * xt.float()
-        y = yt[:, None]                                  # (B,1,H,P)
-        new_state = {"conv_x": cx, "conv_B": cB, "conv_C": cC, "h": h}
+        def step(xin, Bm, Cm, dt, A, D, wx, wB, wC, sx, sB, sC, sh):
+            cx = roll(sx, xin)
+            cB = roll(sB, Bm)
+            cC = roll(sC, Cm)
+            xt = _silu(conv(cx, wx))                     # (B,H,P)
+            bt = _silu(conv(cB, wB))                     # (B,N)
+            ct = _silu(conv(cC, wC))                     # (B,N)
+            dtt = dt[:, 0]                               # (B,H)
+            dA = torch.exp(dtt * A)                      # (B,H)
+            hn = dA[:, :, None, None] * sh + torch.einsum(
+                "bh,bn,bhp->bhpn", dtt, bt.float(), xt.float())
+            yt = torch.einsum("bn,bhpn->bhp", ct.float(), hn) \
+                + D[:, None] * xt.float()
+            return yt[:, None], cx, cB, cC, hn           # y: (B,1,H,P)
+
+        sspec = {"conv_x": (b, None, h), "conv_B": (b,), "conv_C": (b,),
+                 "h": (b, h)}
+        names = ("conv_x", "conv_B", "conv_C", "h")
+        y, *new = run_local(
+            step, (xin, Bm, Cm, dt, A, D) + convs
+            + tuple(state[k] for k in names),
+            ((b, None, h), (b,), (b,), (b, None, h), (h,), (h,))
+            + conv_specs + tuple(sspec[k] for k in names),
+            ((b, None, h),) + tuple(sspec[k] for k in names))
+        new_state = dict(zip(names, new))
 
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps).to(x.dtype)
-    return _proj(y, p["wo"], 2), new_state
+    return shard(_proj(y, p["wo"], 2), "batch", "seq", "embed"), new_state
 
 
 def mamba_state_defs(cfg: ModelConfig, batch: int) -> Dict[str, ParamDef]:

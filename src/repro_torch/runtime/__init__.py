@@ -1,10 +1,6 @@
-"""Runtime: the straggler monitor.
-
-The JAX package's ``elastic.py`` (``plan_mesh``, ``make_elastic_mesh``,
-``validate_batch``) builds a device mesh and comes with the DTensor slice
-(ROADMAP.md, Queue 1).
-"""
-
+from .elastic import (ElasticDecision, make_elastic_mesh, plan_mesh,
+                      validate_batch)
 from .straggler import StragglerConfig, StragglerMonitor
 
-__all__ = ["StragglerConfig", "StragglerMonitor"]
+__all__ = ["ElasticDecision", "make_elastic_mesh", "plan_mesh",
+           "validate_batch", "StragglerConfig", "StragglerMonitor"]

@@ -15,12 +15,20 @@ package's):
 The trainer runs on one device (default: the card; asking for the card
 on a host without one raises).  Each step updates the parameters and the
 optimizer state in place and ends in one host read of its metrics — the
-counterpart of the JAX trainer's ``block_until_ready``.  ``mesh`` and
-``rules`` come with the DTensor slice.
+counterpart of the JAX trainer's ``block_until_ready``.
+
+With a ``mesh`` (a ``DeviceMesh``; every rank of it runs the same
+trainer) the parameters, the optimizer state and each batch are
+DTensors on the layouts of ``repro_torch.dist.partition`` under
+``rules``, the step runs under ``use_sharding(mesh, rules)`` with the
+gradients laid out as the parameters, and checkpoints hold global
+tensors: each rank gathers, rank 0 writes, and a restore lays every leaf
+out on the trainer's mesh — which need not be the one that saved.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -31,8 +39,10 @@ import torch
 
 from ..ckpt import CheckpointManager
 from ..data import DataConfig, TokenSource, to_device
+from ..dist import partition
+from ..dist.sharding import use_sharding
 from ..dist.step import make_train_step
-from ..models.config import ModelConfig
+from ..models.config import ModelConfig, ShapeConfig
 from ..models.model import RunConfig, init_model
 from ..models.params import make_generator, resolve_device
 from ..optim import adamw
@@ -61,10 +71,10 @@ class Trainer:
                  mesh=None, rules=None,
                  on_straggler: Optional[Callable] = None,
                  device: "torch.device | str | None" = None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a mesh needs the DTensor slice (ROADMAP.md, Queue 1)")
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"a {mesh.device_type} mesh for a trainer on "
+                             f"{self.device}")
         trainer_cfg = trainer_cfg or TrainerConfig()
         self.cfg = cfg
         self.data_cfg = data_cfg
@@ -92,7 +102,36 @@ class Trainer:
                                  make_generator(self.tc.seed, self.device),
                                  self.device)
         self.opt_state = adamw.init(self.opt_cfg, self.params)
+        if self.mesh is not None:
+            self.params = partition.distribute(self.params,
+                                               self.param_shardings())
+            self.opt_state = partition.distribute(self.opt_state,
+                                                  self.opt_shardings())
         self.step = 0
+
+    def param_shardings(self):
+        return partition.model_shardings(self.cfg, self.mesh, self.rules)
+
+    def opt_shardings(self):
+        return partition.opt_shardings(self.param_shardings(), self.mesh)
+
+    def _shardings(self):
+        """The layout tree of :meth:`_tree` (None without a mesh)."""
+        if self.mesh is None:
+            return None
+        opt = self.opt_shardings()
+        return {"params": self.param_shardings(),
+                "opt": {"m": opt.m, "v": opt.v, "count": opt.count}}
+
+    def _batch(self, step: int):
+        batch = to_device(self.source.batch(step), self.device)
+        if self.mesh is None:
+            return batch
+        shape = ShapeConfig("trainer", self.data_cfg.seq_len,
+                            self.data_cfg.global_batch, "train")
+        layouts = partition.batch_shardings(self.cfg, shape, self.mesh,
+                                            self.rules)
+        return partition.distribute(batch, {k: layouts[k] for k in batch})
 
     def _tree(self) -> Dict[str, Any]:
         return {"params": self.params,
@@ -105,7 +144,8 @@ class Trainer:
             return False
         if self.params is None:
             self.init_state()     # build templates for structure
-        out = self.ckpt.restore(latest, template=self._tree())
+        out = self.ckpt.restore(latest, template=self._tree(),
+                                shardings=self._shardings())
         tree = out["tree"]
         self.params = tree["params"]
         self.opt_state = adamw.OptState(
@@ -126,15 +166,22 @@ class Trainer:
               simulate_failure_at: Optional[int] = None) -> Dict[str, Any]:
         if self.params is None and not self.try_restore():
             self.init_state()
-        step_fn = make_train_step(self.cfg, self.run, self.opt_cfg)
+        grad_shardings = (self.param_shardings() if self.mesh is not None
+                          else None)
+        step_fn = make_train_step(self.cfg, self.run, self.opt_cfg,
+                                  grad_shardings=grad_shardings)
+        scope = (lambda: use_sharding(self.mesh, self.rules)
+                 if self.mesh is not None else contextlib.nullcontext())
         target = self.tc.total_steps if steps is None else self.step + steps
         while self.step < target:
-            batch = to_device(self.source.batch(self.step), self.device)
+            batch = self._batch(self.step)
             self.monitor.step_start()
-            self.params, self.opt_state, metrics = step_fn(
-                self.params, self.opt_state, batch)
+            with scope():
+                self.params, self.opt_state, metrics = step_fn(
+                    self.params, self.opt_state, batch)
             # the step's end: one host read of every metric
-            values = torch.stack([v.float() for v in metrics.values()])
+            values = torch.stack([v.float() for v in
+                                  partition.gather(metrics).values()])
             m = dict(zip(metrics, values.tolist()))
             self.monitor.step_end()
             self.step += 1

@@ -274,8 +274,10 @@ def test_transfer_refuses_a_config_the_proof_rules_out(tmp_path):
 def test_the_port_registry_lints_without_errors():
     report = port_an.analyze_registry(profiles=[H100_SXM])
     assert report.errors == []
+    # the builtins: the three CUDA kernels and, as in the JAX package's
+    # registry, the sharding tuner's cell
     assert {f.kernel for f in report} == {"gemm", "conv2d",
-                                          "flash_attention"}
+                                          "flash_attention", "sharding_cell"}
     assert report.exit_code() == 0
     # with no card, the default sweep is the built-in profiles
     assert port_an.default_profiles() == [H100_SXM]

@@ -206,3 +206,29 @@ def test_training_needs_the_card_unless_asked_for_the_cpu(no_gpu, tmp_path):
     t.init_state()
     assert t.params["embed"].device.type == "cpu"
     assert t.opt_state.count.device.type == "cpu"
+
+
+def test_distribution_entry_points_default_to_the_card():
+    """Meshes, the dry-run and the sharding tuner lay tensors out on the
+    card's device type unless the caller asks for the CPU; the dry-run's
+    fake world is entered and left inside a call and refuses to take over
+    an existing process group."""
+    import inspect
+
+    from repro_torch.launch import dryrun, mesh
+    from repro_torch.runtime import elastic
+    from repro_torch.tune import CellObjective
+
+    for fn in (mesh.make_production_mesh, mesh.make_host_mesh,
+               elastic.make_elastic_mesh, dryrun.analyze_cell,
+               dryrun.cell_costs, dryrun.run_cells):
+        assert inspect.signature(fn).parameters[
+            "device_type"].default == "cuda", fn.__name__
+    assert CellObjective("mamba2-130m", "decode_32k").device_type == "cuda"
+    assert not torch.distributed.is_initialized()
+    with dryrun.fake_world(4):
+        assert torch.distributed.get_world_size() == 4
+        with pytest.raises(RuntimeError, match="process group"):
+            with dryrun.fake_world(2):
+                pass
+    assert not torch.distributed.is_initialized()

@@ -16,6 +16,7 @@ and the parameters within ``STEP_TOL`` of the learning rate.
 import dataclasses
 import functools
 import os
+import types
 
 import numpy as np
 import pytest
@@ -290,12 +291,15 @@ def test_bf16_loss_and_gradients_follow_jax():
 
 
 def test_grad_shardings_and_mesh_wait_for_the_dtensor_slice(tmp_path):
+    """The DTensor slice has landed: ``grad_shardings`` and ``mesh`` are
+    taken (``tests/test_torch_dist.py`` drives both on gloo ranks), and a
+    mesh of another device type than the trainer's is refused."""
     cfg = configs.get_config("granite-3-2b", smoke=True)
-    with pytest.raises(NotImplementedError):
-        make_train_step(cfg, grad_shardings={"embed": None})
-    with pytest.raises(NotImplementedError):
+    assert callable(make_train_step(cfg, grad_shardings={"embed": None}))
+    with pytest.raises(ValueError, match="mesh"):
         Trainer(cfg, DataConfig(8, 2, cfg.vocab_size),
-                TrainerConfig(ckpt_dir=str(tmp_path)), mesh=object(),
+                TrainerConfig(ckpt_dir=str(tmp_path)),
+                mesh=types.SimpleNamespace(device_type="cuda"),
                 device="cpu")
 
 
