@@ -26,7 +26,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, Dict, Iterable, List, Mapping, NamedTuple
+from typing import (Any, Callable, Dict, Iterable, List, Mapping, NamedTuple,
+                    Tuple)
 
 import torch
 
@@ -102,6 +103,138 @@ VIEW_OPS = frozenset({
     "select", "permute", "detach", "alias", "unsqueeze", "squeeze",
     "as_strided", "split", "lift_fresh", "wait_tensor",
     "_wrap_tensor_autograd"})
+
+
+#: XLA's ``HloCostAnalysis`` count, per output element, of the operations
+#: that are neither products nor views: (FLOPs, transcendentals).  An
+#: elementwise arithmetic op (a compare, a select and a convert among
+#: them) is one FLOP; ``exp``, ``log``, ``rsqrt``, ``tanh`` ... are one
+#: transcendental and no FLOP; the activations are what XLA counts for
+#: their ``jax.nn`` forms and the fused backward ops what it counts for
+#: ``jax.vjp`` of those forms (``tests/test_torch_cost_rule.py`` compiles
+#: each and reads its ``cost_analysis()``).
+POINTWISE_COST: Dict[str, tuple] = {
+    **{k: (1, 0) for k in (
+        "add", "sub", "rsub", "mul", "div", "neg", "reciprocal", "maximum",
+        "minimum", "clamp", "clamp_min", "clamp_max", "where",
+        "masked_fill", "eq", "ne", "gt", "ge", "lt", "le", "bitwise_and",
+        "bitwise_or", "bitwise_xor", "bitwise_not", "logical_and",
+        "logical_or", "logical_not", "abs", "sign", "floor", "ceil",
+        "round", "trunc", "fmod", "remainder", "square")},
+    **{k: (0, 1) for k in (
+        "exp", "exp2", "expm1", "log", "log2", "log10", "log1p", "sqrt",
+        "rsqrt", "tanh", "sin", "cos", "tan", "erf", "atan", "atan2")},
+    "sigmoid": (3, 1),                 # lax.logistic
+    "silu": (4, 1),                    # jax.nn.silu
+    "softplus": (6, 2),                # jax.nn.softplus (logaddexp(x, 0))
+    "gelu": (8, 1),                    # jax.nn.gelu, tanh form
+    "silu_backward": (9, 1),           # jax.vjp(jax.nn.silu)
+    "softplus_backward": (12, 3),      # jax.vjp(jax.nn.softplus)
+    "gelu_backward": (20, 1),          # jax.vjp(jax.nn.gelu)
+    "sigmoid_backward": (3, 0),        # g * y * (1 - y)
+    "tanh_backward": (3, 0),           # g * (1 - y * y)
+    "threshold_backward": (2, 0),      # where(x <= t, 0, g)
+    "addcmul": (3, 0),                 # a + v * b * c
+    "addcdiv": (3, 0),
+}
+
+#: reductions: XLA counts one FLOP per input element folded into an
+#: output element (n - m for n inputs and m outputs); ``mean`` adds its
+#: divide (m), arg-reductions carry a 9-op comparator
+_REDUCE = frozenset({"sum", "amax", "amin", "max", "min", "prod", "any",
+                     "all", "nansum"})
+_CONVERTS = frozenset({"_to_copy", "to", "copy_", "copy"})
+
+
+def _scalar_pow_cost(e: float) -> tuple:
+    """``x ** e`` for a scalar ``e``: XLA multiplies an integer power out
+    by squaring (a negative one adds a divide); any other is a
+    transcendental."""
+    if float(e) != int(e):
+        return 0, 1
+    k = abs(int(e))
+    flops = (k.bit_length() - 1 + bin(k).count("1") - 1) if k else 0
+    return flops + (1 if e < 0 else 0), 0
+
+
+def _cumsum_flops(length: int) -> int:
+    """XLA's count for a prefix sum of ``length`` on the CPU: a reduce
+    window, which it rewrites into blocks of 16 past that length."""
+    if length <= 16:
+        return length * (length - 1)
+    nb = -(-length // 16)
+    return nb * 240 + 16 * nb + _cumsum_flops(nb) + (nb - 1 if nb <= 16
+                                                      else 0)
+
+
+def xla_pointwise_cost(func, args, kwargs, outs) -> tuple:
+    """(FLOPs, transcendentals) that XLA's ``HloCostAnalysis`` counts for
+    the same function as ``func`` (an aten op that is not a product, a
+    convolution or attention): see :data:`POINTWISE_COST`.  Moves,
+    layout changes, gathers, fills and collectives count 0."""
+    name = func.overloadpacket.__name__
+    if not outs:
+        return 0, 0
+    m = outs[0].numel()
+    x = args[0] if args and isinstance(args[0], torch.Tensor) else None
+    n = x.numel() if x is not None else m
+    base = name[:-1] if name.endswith("_") and name[:-1] in \
+        POINTWISE_COST else name
+    if base in POINTWISE_COST:
+        f, t = POINTWISE_COST[base]
+        if base in ("add", "sub") and kwargs.get("alpha", 1) != 1:
+            f += 1
+        return f * m, t * m
+    if base == "pow":
+        if isinstance(x, torch.Tensor) and not isinstance(
+                args[1], torch.Tensor):
+            f, t = _scalar_pow_cost(args[1])
+            return f * m, t * m
+        return 0, m
+    if name in _CONVERTS:
+        src = args[1] if name in ("copy_", "copy") else x
+        if isinstance(src, torch.Tensor) and src.dtype != outs[0].dtype:
+            return m, 0
+        return 0, 0
+    if name in _REDUCE:
+        return n - m, 0
+    if name == "mean":
+        return n, 0
+    if name in ("argmax", "argmin"):
+        return 9 * (n - m), 0
+    if name == "linalg_vector_norm":
+        return n + n - m, m
+    if name == "logsumexp":
+        return 2 * (n - m) + n + 4 * m, n + m
+    if name in ("_softmax", "_log_softmax"):
+        rows = n // max(x.shape[args[1]], 1)
+        if name == "_softmax":
+            return 2 * (n - rows) + 2 * n, n
+        return 2 * (n - rows) + 2 * n, n + rows
+    if name == "_softmax_backward_data":
+        rows = m // max(outs[0].shape[args[2]], 1)
+        return 3 * m + (m - rows), 0
+    if name == "_log_softmax_backward_data":
+        rows = m // max(outs[0].shape[args[2]], 1)
+        return 2 * m + (m - rows), m
+    if name == "cumsum":
+        length = x.shape[args[1]] if x.dim() else 1
+        return (n // max(length, 1)) * _cumsum_flops(length), 0
+    if name in ("tril", "triu"):
+        return m + math.prod(outs[0].shape[-2:]), 0
+    if name in ("sort", "argsort"):
+        dim = kwargs.get("dim", args[1] if len(args) > 1 and isinstance(
+            args[1], int) else -1)
+        length = x.shape[dim] if x.dim() else 1
+        return n * (max(length - 1, 0).bit_length() + 3), 0
+    if name == "embedding_dense_backward":
+        return args[0].numel(), 0
+    if name in ("index_put", "index_put_"):
+        acc = args[3] if len(args) > 3 else kwargs.get("accumulate", False)
+        return (args[2].numel() if acc else 0), 0
+    if name in ("scatter_add", "scatter_add_", "index_add", "index_add_"):
+        return args[3].numel(), 0
+    return 0, 0
 
 
 class OpRecord(NamedTuple):
@@ -238,11 +371,20 @@ def _nbytes(ts: List[torch.Tensor]) -> int:
 
 class OpTrace:
     """Record what a step asks of each rank: every operation on plain
-    (local) tensors, with its result's dtype and shape, its FLOPs
-    (``torch.utils.flop_counter``'s formulas), the bytes it reads and
-    writes (inputs plus outputs of every op that is not a view:
-    ``chip_smoke.py::step_traffic``'s rule) and the peak of live local
-    storage.
+    (local) tensors, with its result's dtype and shape, its FLOPs, the
+    bytes it reads and writes (inputs plus outputs of every op that is
+    not a view: ``chip_smoke.py::step_traffic``'s rule) and the peak of
+    live local storage.
+
+    FLOPs are counted as XLA's ``cost_analysis()["flops"]`` counts them,
+    so that a trace compares with the JAX package's compiled step:
+    products, convolutions and attention by ``torch.utils.flop_counter``'s
+    formulas (2 per multiply-add), every other operation that is not a
+    view by :func:`xla_pointwise_cost` (one per output element of an
+    elementwise op, one per input element folded by a reduction).
+    Transcendentals (``exp``, ``log``, ``rsqrt``, ``tanh`` ...) are kept
+    apart, in ``transcendentals``, as XLA keeps them; collectives count
+    none (XLA counts an all-reduce's adds, a few per mille of a step).
 
     Operations on DTensors are handed on to DTensor, which runs them on
     their local shards and issues the collectives its layouts need: those
@@ -257,16 +399,19 @@ class OpTrace:
     it; an operation's result that shares a storage already counted (a
     view of a parameter, an in-place update) adds nothing.  It does not
     count the allocator's caching or fragmentation, the CUDA context or
-    library workspaces.
+    library workspaces.  With ``detail``, ``peak_live`` lists what is live
+    at the peak beyond the resident tensors: (op, dtype, shape, bytes) of
+    each storage, by the operation that allocated it.
 
     Use as a context manager; ``records`` is the trace."""
 
-    def __init__(self, resident: Any = ()):
+    def __init__(self, resident: Any = (), detail: bool = False):
         from torch.multiprocessing.reductions import StorageWeakRef
         from torch.utils.flop_counter import flop_registry
         self._flops_of = flop_registry
         self.records: List[OpRecord] = []
         self.flops = 0.0
+        self.transcendentals = 0.0
         self.bytes = 0
         self.ops = 0
         self.by_op: Dict[str, List[float]] = {}
@@ -279,6 +424,8 @@ class OpTrace:
         self.resident = sum(nb for _, nb in self._resident.values())
         self.live = 0
         self.peak = self.resident
+        self.detail = detail
+        self.peak_live: List[Tuple[str, Any, Tuple[int, ...], int]] = []
         self._mode = None
 
     def __enter__(self):
@@ -319,20 +466,22 @@ class OpTrace:
         if base in VIEW_OPS:
             return
         nb = _nbytes(ins) + _nbytes(outs)
-        fl = 0.0
         count = self._flops_of.get(func.overloadpacket)
         if count is not None:
-            fl = float(count(*args, **kwargs, out_val=out))
+            fl, tr = float(count(*args, **kwargs, out_val=out)), 0
+        else:
+            fl, tr = xla_pointwise_cost(func, args, kwargs, outs)
         self.ops += 1
         self.bytes += nb
         self.flops += fl
+        self.transcendentals += tr
         entry = self.by_op.setdefault(name, [0, 0, 0.0])
         entry[0] += 1
         entry[1] += nb
         entry[2] += fl
-        self._track(outs)
+        self._track(outs, name)
 
-    def _track(self, outs: List[torch.Tensor]) -> None:
+    def _track(self, outs: List[torch.Tensor], name: str) -> None:
         from torch.multiprocessing.reductions import StorageWeakRef
         added = False
         for t in outs:
@@ -341,19 +490,24 @@ class OpTrace:
             if key in self._resident:
                 continue
             if key in self._storages:
-                ref, nb = self._storages[key]
+                ref, nb, _ = self._storages[key]
                 if not ref.expired():
                     continue
                 self.live -= nb                  # an address reused
-            self._storages[key] = (StorageWeakRef(st), st.nbytes())
+            label = (name, t.dtype, tuple(t.shape)) if self.detail else None
+            self._storages[key] = (StorageWeakRef(st), st.nbytes(), label)
             self.live += st.nbytes()
             added = True
         if added:
-            dead = [k for k, (ref, _) in self._storages.items()
+            dead = [k for k, (ref, _, _) in self._storages.items()
                     if ref.expired()]
             for k in dead:
                 self.live -= self._storages.pop(k)[1]
-            self.peak = max(self.peak, self.resident + self.live)
+            if self.resident + self.live > self.peak:
+                self.peak = self.resident + self.live
+                if self.detail:
+                    self.peak_live = [label + (nb,) for _, nb, label
+                                      in self._storages.values()]
 
     def collectives(self) -> CollectiveStats:
         return collective_stats(self.records)

@@ -207,9 +207,33 @@ def shard(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
         raise TypeError(f"shard{axes}: a plain {type(x).__name__} inside a "
                         f"mesh scope; distribute it first")
     want = placements(spec_for(x.shape, axes, rules, mesh), x.dim(), mesh)
-    if tuple(x.placements) == want:
-        return x
-    return x.redistribute(mesh, want)
+    if not x.requires_grad:
+        return x if tuple(x.placements) == want else \
+            x.redistribute(mesh, want)
+    return _Constrain.apply(x, mesh, want)
+
+
+class _Constrain(torch.autograd.Function):
+    """``x`` redistributed to ``want``, whose gradient is redistributed to
+    ``want`` too: the transpose of JAX's ``with_sharding_constraint`` is
+    the same constraint on the cotangent.  DTensor's own redistribute
+    leaves the gradient in whatever layout reached it (a partial sum
+    over the heads that a column-parallel projection's backward left),
+    and a later backward product then gathers activations instead."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, want):
+        ctx.layout = (mesh, want)
+        if tuple(x.placements) == want:
+            return x.view_as(x)
+        return x.redistribute(mesh, want)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, want = ctx.layout
+        if tuple(g.placements) != want:
+            g = g.redistribute(mesh, want)
+        return g, None, None
 
 
 def sharding_for(shape: Sequence[int], axes: Sequence[Optional[str]],
@@ -423,6 +447,157 @@ def run_local(fn, args: Sequence[Any], specs: Sequence[Optional[Spec]],
                      ins, grads, mesh, redistribute_inputs=True)(*dargs)
 
 
+#: per mesh dim, the layouts of a product's operands and result given the
+#: operands' own: (x's, w's) -> (x wanted, w wanted, result), for x (M, K)
+#: and w (K, N); "S0"/"S1" shard a dim, "R" replicates, "P" is a partial sum
+_MATMUL_LAYOUT = {
+    ("S0", "R"): ("S0", "R", "S0"), ("S0", "S0"): ("S0", "R", "S0"),
+    ("S0", "S1"): ("S0", "R", "S0"),      # rows win; the weight gathered
+    ("R", "S1"): ("R", "S1", "S1"),
+    ("S1", "S0"): ("S1", "S0", "P"),
+    ("R", "S0"): ("S1", "S0", "P"),       # x cut locally to w's rows
+    ("S1", "R"): ("S1", "S0", "P"),       # w cut locally to x's columns
+    ("S1", "S1"): ("R", "S1", "S1"),      # x gathered, w keeps its columns
+    ("R", "R"): ("R", "R", "R"),
+}
+#: (R, R) with fewer rows than the contraction: both operands cut along
+#: it and the (small) result partial, not the whole product on every rank
+_MATMUL_FEW_ROWS = ("S1", "S0", "P")
+
+
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` for a 2-D ``x`` (M, K) and ``w`` (K, N), each rank
+    multiplying its own shards in the layout GSPMD gives the product of
+    annotated operands (:data:`_MATMUL_LAYOUT`, mesh dim by mesh dim): a
+    mesh dim that splits x's rows splits the result's rows and gathers
+    the weight there (FSDP); one that splits w's columns splits the
+    result's columns; one that splits the contraction leaves the result
+    partial; one that splits neither leaves the product whole on every
+    rank, unless x has fewer rows than the contraction is long: then both
+    are cut along the contraction and the result, smaller than the
+    operands, is partial.  The backward's two products follow the same
+    rule (a weight's gradient ``x.T @ g`` has few rows and a long
+    contraction, so it is cut where the forward product was whole), as
+    GSPMD partitions the transposed program: without that cut the
+    granite cells of ``tests/test_torch_dryrun_parity.py`` repeat on
+    every rank work that the JAX step splits.  A decode step's few rows
+    do not move to a split weight: GSPMD gathers the weight there too.
+    DTensor's own choice may instead cut a whole operand unevenly along
+    a dim the rules leave whole and gather a large result (the logits of
+    a vocabulary of 50,280 on 16 ranks).  Plain tensors: ``x @ w``."""
+    if not (_is_dtensor(x) and _is_dtensor(w)):
+        return x @ w
+    x, w = _Operands.apply(x, w)
+    return _Matmul.apply(x, w, x.grad_fn)
+
+
+def _local_matmul(x, w):
+    """``x @ w`` of two 2-D DTensors in :func:`matmul`'s layout, outside
+    autograd: the operands redistributed, the local product wrapped."""
+    DTensor, Replicate, Shard, Partial = _api()
+    mesh = x.device_mesh
+
+    def code(p):
+        return f"S{p.dim}" if isinstance(p, Shard) else "R"
+
+    def place(c):
+        return {"S0": Shard(0), "S1": Shard(1), "R": Replicate(),
+                "P": Partial()}[c]
+
+    x = replicate(x, [m for m, p in enumerate(x.placements)
+                      if isinstance(p, Partial)])
+    M, K = x.shape
+
+    def rule(m, pair):
+        if mesh.size(m) > 1 and pair == ("R", "R") and M < K:
+            return _MATMUL_FEW_ROWS
+        return _MATMUL_LAYOUT[pair]
+
+    want = [rule(m, (code(px), code(pw)))
+            for m, (px, pw) in enumerate(zip(x.placements, w.placements))]
+    x = _redistribute(x, [place(a) for a, _, _ in want])
+    w = _redistribute(w, [place(b) for _, b, _ in want])
+    out = x.to_local() @ w.to_local()
+    return DTensor.from_local(out, mesh, [place(c) for _, _, c in want],
+                              run_check=False,
+                              shape=torch.Size((x.shape[0], w.shape[1])),
+                              stride=(w.shape[1], 1))
+
+
+def _redistribute(t, placements):
+    """``t`` in ``placements``.  Where its split only moves from one mesh
+    dim to another of the same size (a weight split on "data" wanted
+    split on "model", the decode head's few rows), each rank receives the
+    one shard it needs from the rank with its coordinates on the two dims
+    swapped: an all-to-all that moves one shard a rank, GSPMD's
+    collective-permute.  DTensor would gather the whole tensor over the
+    first dim and keep a chunk.  Otherwise DTensor's redistribution."""
+    import torch.distributed as dist
+    DTensor, Replicate, Shard, _ = _api()
+    mesh, have = t.device_mesh, list(t.placements)
+    if have == list(placements):
+        return t
+    moved = [m for m, (a, b) in enumerate(zip(have, placements)) if a != b]
+    if len(moved) == 2 and mesh.size() == dist.get_world_size():
+        m1, m2 = moved if isinstance(have[moved[0]], Shard) else moved[::-1]
+        a, b = have[m1], placements[m2]
+        if isinstance(a, Shard) and a == b and \
+                have[m2] == placements[m1] == Replicate() and \
+                not any(p == a for m, p in enumerate(have) if m != m1) and \
+                mesh.size(m1) == mesh.size(m2) and \
+                t.shape[a.dim] % mesh.size(m1) == 0:
+            from torch.distributed._functional_collectives import (
+                all_to_all_single)
+            c = list(mesh.get_coordinate())
+            c[m1], c[m2] = c[m2], c[m1]
+            peer = mesh.mesh.tolist()
+            for i in c:
+                peer = peer[i]
+            splits = [0] * dist.get_world_size()
+            local = t.to_local()
+            splits[peer] = local.numel()
+            got = all_to_all_single(local.reshape(-1), splits, splits,
+                                    dist.group.WORLD)
+            return DTensor.from_local(got.view(local.shape), mesh,
+                                      placements, run_check=False,
+                                      shape=t.shape, stride=t.stride())
+    return t.redistribute(mesh, placements)
+
+
+class _Operands(torch.autograd.Function):
+    """``(x, w)`` as they are, saved for :class:`_Matmul`'s backward.
+    Saved here, before the product runs, as autograd saves a built-in
+    product's operands: ``torch.utils.checkpoint`` stops recomputing a
+    layer at its last saved tensor, and operands saved when the product
+    returns would have it recompute a layer's last product for nothing."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.view_as(x), w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, gx, gw):
+        return gx, gw
+
+
+class _Matmul(torch.autograd.Function):
+    """:func:`matmul`, whose backward products take its layout rule too;
+    its operands are those ``saved`` (an :class:`_Operands` node) holds."""
+
+    @staticmethod
+    def forward(ctx, x, w, saved):
+        ctx.saved = saved
+        return _local_matmul(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved.saved_tensors
+        gx = _local_matmul(g, w.t()) if ctx.needs_input_grad[0] else None
+        gw = _local_matmul(x.t(), g) if ctx.needs_input_grad[1] else None
+        return gx, gw, None
+
+
 def scope_spec(shape: Sequence[int], axes: Sequence[Optional[str]]) -> Spec:
     """``spec_for`` under the scope's rules and mesh, padded with None to
     one entry per dim (all None outside a scope)."""
@@ -448,7 +623,20 @@ def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     dims, lo, hi = chunk_of(vocab, V)
     lead = scope_spec(ids.shape, ("batch",) + (None,) * (ids.dim() - 1))
 
+    # a table split along d (FSDP) is gathered transposed: DTensor gathers
+    # a later dim through a buffer of the leading one and a concatenation,
+    # two whole tables at once; along the leading dim it is one.  With so
+    # few ids that moving them and their rows costs less than the table (a
+    # decode step), the ids are gathered instead and each rank looks up
+    # its columns of every row; the caller's ``shard`` moves the rows
+    split_d = _split_dims(table, (1,))
+    few = bool(split_d) and \
+        ids.numel() * (1 + table.shape[1]) < table.numel()
+    flip = bool(split_d) and not few
+
     def rows(t, i):
+        if flip:
+            t = t.t()
         if not dims:
             return t[i]
         i = i.long()
@@ -456,8 +644,15 @@ def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
         out = t[torch.where(inside, i - lo, 0)]
         return torch.where(inside[..., None], out, torch.zeros_like(out))
 
-    return run_local(rows, (table, ids), ((vocab if dims else None,), lead),
-                     (lead,), partial=dims)
+    entry = vocab if dims else None
+    if few:
+        names = tuple(table.device_mesh.mesh_dim_names[m] for m in split_d)
+        d_entry = names[0] if len(names) == 1 else names
+        return run_local(rows, (table, ids), ((entry, d_entry), ()),
+                         ((None,) * ids.dim() + (d_entry,),), partial=dims)
+    return run_local(rows, (table.t() if flip else table, ids),
+                     ((None, entry) if flip else (entry,), lead), (lead,),
+                     partial=dims)
 
 def replicate(x: torch.Tensor, dims: Optional[Sequence[int]] = None
               ) -> torch.Tensor:
@@ -473,6 +668,68 @@ def replicate(x: torch.Tensor, dims: Optional[Sequence[int]] = None
                  for m, p in enumerate(x.placements))
     return x if tuple(x.placements) == want else \
         x.redistribute(x.device_mesh, want)
+
+
+def _split_dims(x: torch.Tensor, dims: Sequence[int]) -> Tuple[int, ...]:
+    """The mesh dims that split ``x`` (a DTensor) along any of ``dims``;
+    () for a plain tensor or one that holds a partial sum (DTensor then
+    resolves the reduction itself)."""
+    if not _is_dtensor(x):
+        return ()
+    _, _, Shard, Partial = _api()
+    if any(isinstance(p, Partial) for p in x.placements):
+        return ()
+    dims = {d % x.dim() for d in dims}
+    return tuple(m for m, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim in dims)
+
+
+def _local_reduce(fn, x: torch.Tensor, split: Tuple[int, ...],
+                  kind: str = "sum") -> torch.Tensor:
+    """``fn`` (a reduction that keeps its dims) on each rank's shard of
+    ``x``; the results are partial over the mesh dims ``split`` (of kind
+    ``kind``) and replicated there by one all-reduce of the reduced
+    tensor."""
+    from torch.distributed.tensor.experimental import local_map
+    Partial = _api()[3]
+    outs = [Partial(kind) if m in split else p
+            for m, p in enumerate(x.placements)]
+    part = local_map(lambda t: fn(_ContiguousGrad.apply(t)).contiguous(),
+                     outs, (tuple(x.placements),), (tuple(x.placements),),
+                     x.device_mesh, redistribute_inputs=False)(x)
+    return replicate(part, split)
+
+
+def mean_over(x: torch.Tensor, dims: Sequence[int]) -> torch.Tensor:
+    """``torch.mean(x, dims, keepdim=True)``.  Where the mesh splits ``x``
+    along ``dims``, each rank sums its own shard and only the (..., 1)
+    partial sums are all-reduced, forward and backward, as XLA reduces a
+    sharded dim; DTensor alone would gather ``x`` (the norms over
+    channels split by heads)."""
+    dims = tuple(dims)
+    split = _split_dims(x, dims)
+    if not split:
+        return torch.mean(x, dim=dims, keepdim=True)
+    count = math.prod(x.shape[d] for d in dims)
+    return _local_reduce(lambda t: t.sum(dim=dims, keepdim=True), x,
+                         split) / count
+
+
+def logsumexp_last(x: torch.Tensor) -> torch.Tensor:
+    """``torch.logsumexp(x, -1)``.  Where the mesh splits the last dim
+    (vocab-sharded logits), each rank takes its shard's max, the maxima
+    are all-reduced (max), each rank sums ``exp`` of its shard less it,
+    and the sums are all-reduced: two reduced tensors cross the mesh,
+    never the logits."""
+    split = _split_dims(x, (-1,))
+    if not split:
+        return torch.logsumexp(x, dim=-1)
+    with torch.no_grad():
+        top = _local_reduce(lambda t: t.amax(dim=-1, keepdim=True),
+                            x.detach(), split, "max")
+    total = _local_reduce(lambda t: torch.exp(t - top.to_local()).sum(
+        dim=-1, keepdim=True), x, split)
+    return (top + torch.log(total))[..., 0]
 
 
 class _GradLayout(torch.autograd.Function):
@@ -495,5 +752,7 @@ def grad_as_input(x: torch.Tensor) -> torch.Tensor:
     parameter used twice (a tied embedding: the lookup and the LM head),
     so that autograd adds two gradients of one layout — DTensor may give
     each use's gradient another one and cannot add every pair (a shard to
-    a partial sum).  A plain tensor is returned as it is."""
+    a partial sum) — and for each layer's view of a stacked parameter, so
+    that its partial gradient is reduced to its shard in the backward.  A
+    plain tensor is returned as it is."""
     return _GradLayout.apply(x) if _is_dtensor(x) else x

@@ -66,33 +66,41 @@ def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
         with _mesh_context(params):
             return update(params, opt, batch)
 
+    def laid_out(grads, params):
+        """Each gradient in its final layout: ``grad_shardings``', or on a
+        mesh its parameter's, which the in-place update needs (autograd
+        may leave a gradient partial or sharded otherwise)."""
+        if grad_shardings is not None:
+            from .partition import distribute
+            return distribute(grads, grad_shardings)
+        if _on_mesh(params):
+            return tree_map(
+                lambda g, p: g if tuple(g.placements) == tuple(p.placements)
+                else g.redistribute(p.device_mesh, p.placements),
+                grads, params)
+        return grads
+
     def update(params, opt, batch):
         mb = max(1, int(run.microbatch))
         if mb == 1:
             grads, metrics = grads_of(params, batch)
+            grads = laid_out(grads, params)
         else:
             acc_dt = torch_dtype(run.accum_dtype)
             grads = metrics = None
             for i in range(mb):
                 one = {k: _microbatch(t, mb, i) for k, t in batch.items()}
                 g, m = grads_of(params, one)
-                g = tree_map(lambda a: a.to(acc_dt), g)
+                # each microbatch's gradient is laid out before it is
+                # added: a partial sum over the batch ranks holds the
+                # whole gradient on every rank, the accumulator its shard
+                g = tree_map(lambda a: a.to(acc_dt), laid_out(g, params))
                 grads = g if grads is None else tree_map(torch.add, grads, g)
                 metrics = m if metrics is None else {
                     k: metrics[k] + m[k] for k in metrics}
                 del g
             grads = tree_map(lambda a: (a / mb).float(), grads)
             metrics = {k: v / mb for k, v in metrics.items()}
-        if grad_shardings is not None:
-            from .partition import distribute
-            grads = distribute(grads, grad_shardings)
-        elif _on_mesh(params):
-            # the in-place update needs each gradient laid out as its
-            # parameter (autograd may leave it partial or sharded otherwise)
-            grads = tree_map(
-                lambda g, p: g if tuple(g.placements) == tuple(p.placements)
-                else g.redistribute(p.device_mesh, p.placements),
-                grads, params)
         params, opt, opt_metrics = adamw.update_(opt_cfg, grads, opt, params)
         return params, opt, {**metrics, **opt_metrics}
 

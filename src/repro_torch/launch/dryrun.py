@@ -20,11 +20,23 @@ for ``"cpu"``: no storage is touched either way, but DTensor lowers an
 all-to-all on a CPU mesh to an all-gather plus a chunk (gloo has none),
 so only the CUDA mesh records the MoE dispatch's all-to-all.
 
-Eager execution runs every layer, so the full-depth trace's costs are
-exact and :func:`analyze_cell` reports them.  The JAX package's
-reduced-depth measurement and extrapolation (``measure_costs``) serves
-only the sharding tuner, as its cheap objective.  The
-roofline divides by the H100 profile's datasheet rates — a model, not a
+Each record key has the JAX record's definition and run config.  The
+costs (``flops_per_chip``, ``bytes_per_chip``, ``collective_*`` and
+``scanned_module_costs``) are measured at ``measure_costs``' run config
+(:func:`measurement_run`: one microbatch, no cross-entropy or attention
+chunks, layers unrolled), as the JAX package measures them; eager
+execution runs every layer, so the trace is taken at full depth and
+nothing is extrapolated (``measured_depths`` is ``[num_layers]``,
+``measure_s`` that trace's time).  ``memory`` comes from a trace at the
+cell's own run config, as the JAX record's comes from its production
+compile.  (An earlier revision took the costs from the cell's own config
+too; that compared a different step with the JAX record.)  FLOPs follow
+XLA's convention (:class:`~repro_torch.core.cost.OpTrace`): products at
+2 per multiply-add, one per output element of an elementwise op, one per
+folded element of a reduction, transcendentals apart.
+``measure_costs`` itself, two reduced depths extrapolated as in the JAX
+package, serves the sharding tuner as its cheap objective.  The roofline
+divides by the H100 profile's datasheet rates — a model, not a
 measurement.
 """
 
@@ -178,9 +190,11 @@ def _cell_mesh(multi_pod: bool, mesh_shape, device_type: str):
 
 def _traced_step(cfg, shape: ShapeConfig, run: RunConfig, mesh, rules,
                  opt_cfg: adamw.OptimConfig,
-                 shard_grads: Optional[bool] = None) -> OpTrace:
+                 shard_grads: Optional[bool] = None,
+                 detail: bool = False) -> OpTrace:
     """Run one step of (cfg, shape) on ``mesh`` under ``rules`` eagerly,
-    with ``meta`` local shards, and return its trace."""
+    with ``meta`` local shards, and return its trace (``detail``: with
+    ``OpTrace.peak_live``)."""
     if shard_grads is None:
         shard_grads = SHARD_GRADS_DEFAULT
     with sharding.use_sharding(mesh, rules):
@@ -195,12 +209,12 @@ def _traced_step(cfg, shape: ShapeConfig, run: RunConfig, mesh, rules,
             fn = make_train_step(
                 cfg, run, opt_cfg,
                 grad_shardings=p_shard if shard_grads else None)
-            trace = OpTrace(resident=(params, opt, batch))
+            trace = OpTrace(resident=(params, opt, batch), detail=detail)
             with trace:
                 fn(params, opt, batch)
             return trace
         if shape.kind == "prefill":
-            trace = OpTrace(resident=(params, batch))
+            trace = OpTrace(resident=(params, batch), detail=detail)
             with trace:
                 make_prefill_step(cfg, run)(params, batch)
             return trace
@@ -208,7 +222,7 @@ def _traced_step(cfg, shape: ShapeConfig, run: RunConfig, mesh, rules,
             abstract_cache(cfg, shape.global_batch, shape.seq_len),
             partition.cache_shardings(cfg, shape.global_batch,
                                       shape.seq_len, mesh, rules))
-        trace = OpTrace(resident=(params, cache, batch))
+        trace = OpTrace(resident=(params, cache, batch), detail=detail)
         with trace:
             make_serve_step(cfg, run)(params, cache, batch["inputs"],
                                       shape.seq_len - 1)
@@ -251,8 +265,8 @@ def _mem_analysis(trace: OpTrace) -> Dict[str, Any]:
 # cost measurement.  The JAX package measures reduced-depth unrolled
 # variants (depths L1 < L2) and extrapolates linearly, because XLA's
 # cost_analysis counts a scanned layer once.  An eager trace counts every
-# layer (analyze_cell); the same measurement is kept only as the tuner's
-# cheaper objective.
+# layer (analyze_cell traces run_m at full depth); the extrapolation is
+# kept only as the tuner's cheaper objective.
 # ---------------------------------------------------------------------------
 
 def _measurement_depths(cfg) -> tuple:
@@ -283,13 +297,20 @@ def _extrapolate(c1: Dict[str, Any], c2: Dict[str, Any],
     return out
 
 
+def measurement_run(run: RunConfig) -> RunConfig:
+    """The run config the JAX package measures costs at (``measure_costs``'
+    ``run_m``): one microbatch, no cross-entropy or attention chunks, the
+    layers unrolled."""
+    return dataclasses.replace(run, scan_blocks=False, ce_chunk=0,
+                               attn_chunk=0, microbatch=1)
+
+
 def measure_costs(cfg, shape, run: RunConfig, mesh, rules,
                   opt_cfg: adamw.OptimConfig) -> Dict[str, Any]:
     """Per-rank flops/bytes/collective costs from two reduced depths,
     extrapolated to the full depth.  Must run inside a fake world (or a
     real one) that ``mesh`` belongs to."""
-    run_m = dataclasses.replace(run, scan_blocks=False, ce_chunk=0,
-                                attn_chunk=0, microbatch=1)
+    run_m = measurement_run(run)
     L1, L2, _ = _measurement_depths(cfg)
     cfg1 = dataclasses.replace(cfg, num_layers=L1)
     cfg2 = dataclasses.replace(cfg, num_layers=L2)
@@ -371,21 +392,35 @@ def analyze_cell(arch_id: str, shape_name, *, multi_pod: bool = False,
             "run_config": dataclasses.asdict(run),
             "rules_override": rules_override or {},
         }
-        # the full-depth step: memory, op structure and costs, exact (an
-        # eager trace counts every layer; no second measurement)
+        # 1) the cell's own step: memory and op structure, as the JAX
+        #    record takes them from its production compile
         t0 = time.perf_counter()
         trace = _traced_step(cfg, shape, run, mesh, rules, opt_cfg)
         record["lower_s"] = round(time.perf_counter() - t0, 2)
         record["compile_s"] = 0.0          # eager: nothing is compiled
-        record["measure_s"] = 0.0          # the costs are the trace's own
-        costs = _module_costs(trace)
         record["hlo_ops"] = fusion_stats(trace.records)
         record["memory"] = _mem_analysis(trace)
-        record["scanned_module_costs"] = costs
         record["ops_by_name"] = {k: v[0] for k, v in trace.by_op.items()}
         if keep_text:
             record["hlo_text"] = "\n".join(
                 f"{r.op} {r.dtype} {list(r.shape)}" for r in trace.records)
+        # 2) the costs: the step at the measurement config (measure_costs'
+        #    run_m), traced at full depth (an eager trace counts every
+        #    layer, so nothing is extrapolated); the cell's own trace
+        #    serves when the two configs run the same step
+        run_m = measurement_run(run)
+        if run.eager_step(shape.seq_len, shape.kind) == \
+                run_m.eager_step(shape.seq_len, shape.kind):
+            costs = _module_costs(trace)
+            record["measure_s"] = record["lower_s"]
+        else:
+            del trace
+            gc.collect()
+            t2 = time.perf_counter()
+            trace = _traced_step(cfg, shape, run_m, mesh, rules, opt_cfg)
+            costs = _module_costs(trace)
+            record["measure_s"] = round(time.perf_counter() - t2, 2)
+        record["scanned_module_costs"] = costs
         del trace
         gc.collect()
 

@@ -17,8 +17,8 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import (local_range, reshape, run_local, scope_spec,
-                             shard)
+from ..dist.sharding import (local_range, matmul, mean_over, reshape,
+                             run_local, scope_spec, shard)
 from .config import ModelConfig
 from .params import ParamDef
 
@@ -32,9 +32,10 @@ def _proj(x: torch.Tensor, w: torch.Tensor, n_in: int) -> torch.Tensor:
     # folded to one 2-D product, as matmul folds it; on a mesh the fold
     # goes through ``reshape``, which first gathers a lead dim that DTensor
     # cannot fold while it is split (the sequence of sequence-parallel
-    # attention's output)
-    out = reshape(x, (math.prod(lead), math.prod(k))) \
-        @ reshape(w, (math.prod(k), -1))
+    # attention's output), and the product runs on local shards in
+    # GSPMD's layout (``sharding.matmul``)
+    out = matmul(reshape(x, (math.prod(lead), math.prod(k))),
+                 reshape(w, (math.prod(k), -1)))
     return reshape(out, (*lead, *w.shape[n_in:]))
 
 
@@ -49,7 +50,7 @@ def norm_defs(d: int) -> ParamDef:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = mean_over(xf * xf, (-1,))
     out = xf * torch.rsqrt(var + eps) * scale.float()
     return out.to(x.dtype)
 
@@ -138,6 +139,13 @@ def merge_chunks(parts: torch.Tensor, lse: torch.Tensor,
     return torch.einsum(f"z{lhs},z{rhs}->{rhs}", w, parts)
 
 
+def effective_chunk(chunk: int, length: int) -> int:
+    """The chunk a sequence of ``length`` is cut into: ``chunk`` where it
+    splits the sequence (divides it, and is shorter), else 0 (no chunks).
+    The rule of the chunked attention and the chunked cross-entropy."""
+    return chunk if chunk and length % chunk == 0 and length > chunk else 0
+
+
 def _chunked_attention(q, k, v, *, q_positions, k_positions,
                        chunk: int) -> torch.Tensor:
     """Online softmax over KV chunks — peak memory O(S * chunk) instead of
@@ -201,14 +209,33 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     G = H // KV
     hd = cfg.resolved_head_dim
 
-    q = _proj(x, p["wq"], 1)
-    k = _proj(x, p["wk"], 1)
-    v = _proj(x, p["wv"], 1)
-    if cfg.qkv_bias:
-        q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+    rows = scope_spec((B, S), ("batch", "seq_attn"))
+    names = ("wq", "wk", "wv") + (("bq", "bk", "bv") if cfg.qkv_bias else ())
+    if cache is None and rows[1] is not None:
+        # sequence-parallel attention: each rank projects its own
+        # positions (GSPMD cuts the products along the sequence that q's
+        # layout splits); K and V are gathered along it below
+        def qkv(x, *w):
+            out = [torch.matmul(x, t.reshape(t.shape[0], -1)).reshape(
+                x.shape[:2] + t.shape[1:]) for t in w[:3]]
+            return tuple(o + b for o, b in zip(out, w[3:])) \
+                if cfg.qkv_bias else tuple(out)
 
+        spec = rows + (None, None)
+        q, k, v = run_local(qkv, (x,) + tuple(p[n] for n in names),
+                            (rows,) + ((),) * len(names), (spec,) * 3)
+    else:
+        q = _proj(x, p["wq"], 1)
+        k = _proj(x, p["wk"], 1)
+        v = _proj(x, p["wv"], 1)
+        if cfg.qkv_bias:
+            q = q + p["bq"]
+            k = k + p["bk"]
+            v = v + p["bv"]
+
+    if cache is not None and _decode_by_query_heads(q.shape, KV, cache):
+        return _decode_by_heads(cfg, p, q, k, v, positions, cache,
+                                int(cache_pos), x.dtype)
     expand = cache is None and mode == "expanded" and G > 1
     KV_eff, G_eff = (H, 1) if expand else (KV, G)
     q = reshape(q, (B, S, KV_eff, G_eff, hd))
@@ -234,8 +261,7 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             if expand:
                 k = torch.repeat_interleave(k, G, dim=2)[:, :, lo:hi]
                 v = torch.repeat_interleave(v, G, dim=2)[:, :, lo:hi]
-            if attn_chunk and k.shape[1] % attn_chunk == 0 \
-                    and k.shape[1] > attn_chunk:
+            if effective_chunk(attn_chunk, k.shape[1]):
                 return _chunked_attention(q, k, v, q_positions=qpos,
                                           k_positions=kpos, chunk=attn_chunk)
             return _grouped_attention(q, k, v, q_positions=qpos,
@@ -273,6 +299,60 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 
     out = reshape(out, (B, S, H, hd)).to(x.dtype)
     return shard(_proj(out, p["wo"], 2), "batch", "seq", "embed"), new_cache
+
+
+#: the logical axes of the query before grouping, (B, S, H, hd)
+HEAD_AXES = ("batch", "seq_attn", "heads", None)
+
+
+def _decode_by_query_heads(qshape, KV: int, cache) -> bool:
+    """Whether a decode step splits its attention by query heads: the
+    rules leave the KV heads (and the cache's time) whole on the mesh
+    axes that split the query heads.  Grouped by KV heads, every rank
+    would attend for all heads; the JAX package's compiled step splits
+    the query heads there."""
+    B, S, H, hd = qshape
+    if local_range(cache["k"].shape, CACHE_AXES, 1)[0]:
+        return False
+    kv = scope_spec((B, S, KV, hd), CACHE_AXES)[2]
+    return kv is None and H != KV and \
+        scope_spec(qshape, HEAD_AXES)[2] is not None
+
+
+def _decode_by_heads(cfg, p, q, k, v, positions, cache, pos: int, dtype):
+    """Decode attention on each rank's query heads ``[lo, hi)`` of H.  The
+    KV cache is whole on the heads' mesh axes: every rank writes the new
+    k/v into its copy and attends each of its heads over its KV head (the
+    head's index over G).  Returns the block's output, as
+    :func:`apply_attention` does."""
+    B, S, H, hd = q.shape
+    G = H // cfg.num_kv_heads
+    theta = cfg.rope_theta
+    q = shard(q, *HEAD_AXES)
+    qs = scope_spec(q.shape, HEAD_AXES)
+    b, s_ = qs[:2]
+    _, lo, hi = local_range(q.shape, HEAD_AXES, 2)
+
+    def core(q, k, v, qpos, ck, cv):
+        q = apply_rope(q, qpos, theta)
+        k = apply_rope(k, qpos, theta)
+        ck = write_clamped(ck, k, pos)
+        cv = write_clamped(cv, v, pos)
+        Bl, T = ck.shape[:2]
+        heads = torch.arange(lo, hi, device=q.device) // G
+        k_positions = torch.arange(T, dtype=torch.int32,
+                                   device=q.device).expand(Bl, T)
+        valid = torch.full((Bl,), pos + 1, dtype=torch.int32,
+                           device=q.device)
+        out = _grouped_attention(q[..., None, :], ck[:, :, heads],
+                                 cv[:, :, heads], q_positions=qpos,
+                                 k_positions=k_positions, k_valid_len=valid)
+        return out[..., 0, :]
+
+    out = run_local(core, (q, k, v, positions, cache["k"], cache["v"]),
+                    (qs, (b, None, None), (b, None, None), (b, s_), None,
+                     None), (qs,)).to(dtype)
+    return shard(_proj(out, p["wo"], 2), "batch", "seq", "embed"), cache
 
 
 def _decode_time_split(q, k, v, positions, cache, pos: int, theta: float):
@@ -341,10 +421,15 @@ def mlp_defs(cfg: ModelConfig, d_ff: Optional[int] = None,
 
 
 def apply_mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
-    up = x @ p["wi"]
+    up = _proj(x, p["wi"], 1)
     if "wg" in p:           # SwiGLU
-        h = F.silu(x @ p["wg"]) * up
+        h = F.silu(_proj(x, p["wg"], 1)) * up
     else:                   # classic 2-matrix GELU MLP (jax.nn.gelu's tanh form)
         h = F.gelu(up, approximate="tanh")
     h = shard(h, "batch", "seq", "mlp")
-    return h @ p["wo"]
+    # the product's partial sums over the "mlp" shards are added up here,
+    # in the parameter dtype, where GSPMD adds them: left partial, the
+    # residual stream would carry them into the next norm, whose output
+    # DTensor then keeps partial by gathering whole weights for every
+    # projection after it
+    return shard(_proj(h, p["wo"], 1), "batch", "seq", "embed")

@@ -31,11 +31,13 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..dist.sharding import (embed_rows, grad_as_input, per_batch,
-                             replicate, shard, take_last)
+from ..dist.sharding import (_is_dtensor, embed_rows, grad_as_input,
+                             logsumexp_last, matmul, per_batch, replicate,
+                             reshape, shard, take_last)
 from .config import ModelConfig
 from .layers import (_proj, apply_attention, apply_mlp, attention_cache_defs,
-                     attention_defs, mlp_defs, norm_defs, rms_norm)
+                     attention_defs, effective_chunk, mlp_defs, norm_defs,
+                     rms_norm)
 from .mla import apply_mla, mla_cache_defs, mla_defs
 from .moe import apply_moe, moe_defs
 from .params import (ParamDef, abstract_params, init_params, stack_defs,
@@ -72,6 +74,19 @@ class RunConfig:
         if self.remat not in _REMAT:
             raise ValueError(f"unknown remat {self.remat!r}")
         return None if self.remat == "none" else self.remat
+
+    def eager_step(self, seq_len: int, kind: str) -> "RunConfig":
+        """These knobs as the eager step of a ``kind`` step at ``seq_len``
+        reads them: ``scan_blocks`` set (it changes nothing here), and a
+        chunk that does not split the sequence (:func:`effective_chunk`)
+        or an attention chunk in a decode step (which attends over its
+        cache unchunked) set to 0.  Two configs whose eager steps are
+        equal run the same operations."""
+        attn = 0 if kind == "decode" else effective_chunk(self.attn_chunk,
+                                                          seq_len)
+        return dataclasses.replace(
+            self, scan_blocks=True, attn_chunk=attn,
+            ce_chunk=effective_chunk(self.ce_chunk, seq_len))
 
 
 DEFAULT_RUN = RunConfig()
@@ -184,9 +199,13 @@ def abstract_model(cfg: ModelConfig):
 
 
 def _layers(stacked: Any) -> List[Any]:
-    """Per-layer views of a stacked ``(L, ...)`` tree, one unbind a leaf."""
+    """Per-layer views of a stacked ``(L, ...)`` tree, one unbind a leaf.
+    On a mesh each view's gradient is laid out as the view as the
+    backward reaches it (``grad_as_input``): a layer's gradient is reduced
+    to its shard there, as GSPMD reduces it, and never waits, whole, for
+    the other layers' in the stacked gradient."""
     if isinstance(stacked, torch.Tensor):
-        return list(stacked.unbind(0))
+        return [grad_as_input(t) for t in stacked.unbind(0)]
     per = {k: _layers(v) for k, v in stacked.items()}
     n = len(next(iter(per.values())))
     return [{k: v[i] for k, v in per.items()} for i in range(n)]
@@ -261,6 +280,10 @@ def _head_logits(cfg: ModelConfig, params, x_normed,
         # as V / hc products of the tuned tile width
         logits = torch.cat([torch.matmul(x_normed, head[:, i:i + hc])
                             for i in range(0, V, hc)], dim=-1)
+    elif _is_dtensor(head):            # in GSPMD's layout
+        B, S, d = x_normed.shape
+        logits = reshape(matmul(reshape(x_normed, (B * S, d)), head),
+                         (B, S, V))
     else:
         logits = torch.matmul(x_normed, head)
     if cfg.logit_softcap:
@@ -353,7 +376,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean token NLL in float32 (over ``mask``'s weight when given)."""
     lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
+    lse = logsumexp_last(lf)
     gold = take_last(lf, labels)
     nll = lse - gold
     if mask is not None:
@@ -365,7 +388,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 def _chunk_nll(cfg: ModelConfig, params, h, labels, mask):
     """(summed masked NLL, mask weight) of one sequence chunk."""
     logits = _head_logits(cfg, params, h).float()
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = logsumexp_last(logits)
     gold = take_last(logits, labels)
     return replicate(((lse - gold) * mask).sum()), replicate(mask.sum())
 
@@ -380,7 +403,7 @@ def _ce_from_hidden(cfg: ModelConfig, params, hidden, labels, mask,
     chunking when ``ce_chunk`` does not divide S or S <= ce_chunk.
     """
     S = hidden.shape[1]
-    if not ce_chunk or S % ce_chunk or S <= ce_chunk:
+    if not effective_chunk(ce_chunk, S):
         logits = _head_logits(cfg, params, hidden)
         return cross_entropy(logits, labels, mask)
 

@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import run_local, scope_spec, shard
+from ..dist.sharding import mean_over, run_local, scope_spec, shard
 from .config import ModelConfig
 from .layers import _proj
 from .params import ParamDef
@@ -77,7 +77,7 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                 eps: float) -> torch.Tensor:
     """Mamba2's gated RMSNorm over the (H, P) channels."""
     g = y * F.silu(z.float())
-    var = torch.mean(g * g, dim=(-2, -1), keepdim=True)
+    var = mean_over(g * g, (-2, -1))
     return g * torch.rsqrt(var + eps) * scale
 
 

@@ -228,21 +228,23 @@ def load(arch):
     return {k: v for k, v in flat.items() if ":" not in k}, batch
 
 def step_parity(arch):
+    from repro_torch.launch.dryrun import default_rules_override
+    rules = dict(sharding.DEFAULT_RULES, **default_rules_override(arch))
     cfg = cfg_of(arch)
     flat, batch = load(arch)
     ocfg = adamw.OptimConfig(eps=1e-3)
     plain = params_from_numpy(flat, "cpu")
     p, o, m = make_train_step(cfg, opt_cfg=ocfg)(
         plain, adamw.init(ocfg, plain), batch)
-    p_sh = partition.model_shardings(cfg, mesh)
+    p_sh = partition.model_shardings(cfg, mesh, rules)
     params = params_from_numpy(flat, "cpu", shardings=p_sh)
     opt = partition.distribute(adamw.init(ocfg, params_from_numpy(flat, "cpu")),
                                partition.opt_shardings(p_sh, mesh))
     shape = ShapeConfig("t", job["S"], job["B"], "train")
-    layouts = partition.batch_shardings(cfg, shape, mesh)
+    layouts = partition.batch_shardings(cfg, shape, mesh, rules)
     dbatch = partition.distribute(batch, {k: layouts[k] for k in batch})
     step = make_train_step(cfg, opt_cfg=ocfg, grad_shardings=p_sh)
-    with sharding.use_sharding(mesh):
+    with sharding.use_sharding(mesh, rules):
         dp, do, dm = step(params, opt, dbatch)
     err = max(float((a - b).abs().max()) for a, b in zip(
         tree_leaves(partition.gather(dp)), tree_leaves(p)))
@@ -270,13 +272,24 @@ def trainer(arch, m, d, steps):
     tr.train()
     return tr
 
-def decode_parity(arch, batch, steps=6, T=4):
+def decode_parity(arch, batch, steps=6, T=4, rules=None, kv_heads=None):
     """Decode steps at positions 0..T+1 (the last two clamp their write
     to T - 1) with the cache's time dim split by the rules (seq_kv ->
     ("data", "model"): batch 2 takes "data", so time is split 2 ways;
-    batch 3 divides nothing, so 4), against the meshless step."""
+    batch 3 divides nothing, so 4), against the meshless step.  With
+    ``rules`` and ``kv_heads`` given: those rules, and a config of that
+    many KV heads."""
     cfg = cfg_of(arch)
-    rules = {"seq_kv": ("data", "model")}
+    if kv_heads:
+        cfg = dataclasses.replace(cfg, num_kv_heads=kv_heads)
+    rules = {"seq_kv": ("data", "model")} if rules is None else rules
+    from types import SimpleNamespace
+    from repro_torch.models import layers
+    with sharding.use_sharding(mesh, rules):
+        by_heads = layers._decode_by_query_heads(
+            (batch, 1, cfg.num_heads, cfg.resolved_head_dim),
+            cfg.num_kv_heads, {"k": SimpleNamespace(shape=(
+                batch, T, cfg.num_kv_heads, cfg.resolved_head_dim))})
     params = init_model(cfg, 0, "cpu")
     cache = init_cache(cfg, batch, T, "cpu")
     dparams = partition.distribute(
@@ -296,7 +309,7 @@ def decode_parity(arch, batch, steps=6, T=4):
             got, dcache = step(dparams, dcache, dtok, pos)
         err = max(err, float((got.full_tensor() - ref).abs().max()
                              / ref.abs().max()))
-    return {"logit_rel_err": err,
+    return {"logit_rel_err": err, "by_heads": by_heads,
             "cache_err": max(float((a - b).abs().max()) for a, b in zip(
                 tree_leaves(partition.gather(dcache)), tree_leaves(cache))),
             "time_ways": sorted({time_ways(name, t)
@@ -321,6 +334,10 @@ for arch in job.get("steps", []):
     out[arch] = step_parity(arch)
 for arch in job.get("decode", []):
     out["decode:" + arch] = {str(b): decode_parity(arch, b) for b in (2, 3)}
+for arch in job.get("decode_by_heads", []):
+    out["by_heads:" + arch] = {str(b): decode_parity(arch, b, rules={},
+                                                     kv_heads=1)
+                               for b in (2, 3)}
 if job.get("trainer"):
     arch = job["trainer"]
     a = trainer(arch, None, tempfile.mkdtemp(), 2)
@@ -402,7 +419,7 @@ def _finish(started, timeout=240):
 
 
 STEP_ARCHS = {"granite-3-2b": (4, 2), "mamba2-130m": (2, 2),
-              "deepseek-v3-671b": (2, 2)}
+              "deepseek-v3-671b": (2, 2), "qwen2.5-32b": (2, 2)}
 
 
 def _write_inputs(arch, tmp):
@@ -477,29 +494,37 @@ def gloo_mamba2(gloo_dir, gloo_4x2):
 
 @pytest.fixture(scope="module")
 def gloo_deepseek(gloo_dir):
-    """4 ranks on (2, 2): deepseek's sharded step (MoE and MLA)."""
-    _write_inputs("deepseek-v3-671b", gloo_dir)
-    run = _start({"name": "c", "mesh": [2, 2],
-                  "steps": ["deepseek-v3-671b"]}, gloo_dir)
-    jax_loss = _jax_loss("deepseek-v3-671b", gloo_dir)
-    return {"jax": {"deepseek-v3-671b": jax_loss}, **_finish(run)}
+    """4 ranks on (2, 2): deepseek's sharded step (MoE and MLA), and
+    qwen2.5's under its sequence-parallel attention rule (seq_attn ->
+    "model")."""
+    archs = ["deepseek-v3-671b", "qwen2.5-32b"]
+    for arch in archs:
+        _write_inputs(arch, gloo_dir)
+    run = _start({"name": "c", "mesh": [2, 2], "steps": archs}, gloo_dir)
+    jax_loss = {arch: _jax_loss(arch, gloo_dir) for arch in archs}
+    return {"jax": jax_loss, **_finish(run)}
 
 
 @pytest.fixture(scope="module")
 def gloo_decode(gloo_dir):
     """4 ranks on (2, 2): decode over a time-split cache for the three
-    attention kinds."""
+    attention kinds, and decode split by query heads."""
     return _finish(_start({"name": "d", "mesh": [2, 2],
-                           "decode": list(DECODE_ARCHS)}, gloo_dir))
+                           "decode": list(DECODE_ARCHS),
+                           "decode_by_heads": list(BY_HEADS_ARCHS)},
+                          gloo_dir))
 
 
 #: decode over a time-split cache: GQA, MLA, and the hybrid's shared
 #: attention
 DECODE_ARCHS = ("granite-3-2b", "deepseek-v3-671b", "zamba2-7b")
 
+#: decode split by query heads: one KV head, whole on every rank
+BY_HEADS_ARCHS = ("granite-3-2b", "zamba2-7b")
+
 
 FIXTURE = {"granite-3-2b": "gloo_4x2", "mamba2-130m": "gloo_mamba2",
-           "deepseek-v3-671b": "gloo_deepseek"}
+           "deepseek-v3-671b": "gloo_deepseek", "qwen2.5-32b": "gloo_deepseek"}
 
 
 def _rel(a, b):
@@ -547,6 +572,21 @@ def test_decode_over_a_time_split_cache_matches_the_meshless_decode(
         # batch 2 takes the data axis, so time is split over model only;
         # batch 3 divides neither, so time takes both
         assert r["time_ways"] == [{"2": 2, "3": 4}[batch]], (batch, r)
+
+
+@pytest.mark.parametrize("arch", BY_HEADS_ARCHS)
+def test_decode_split_by_query_heads_matches_the_meshless_decode(
+        gloo_decode, arch):
+    """One KV head does not divide the "model" axis, the query heads do:
+    each rank writes the new k/v into its whole copy of the cache and
+    attends for its own query heads.  Logits and the whole cache against
+    the meshless steps (batch 3 also leaves "data" to the embedding, so
+    the norms reduce a sharded dim)."""
+    for batch, r in gloo_decode["by_heads:" + arch].items():
+        assert r["by_heads"], (batch, r)
+        assert r["logit_rel_err"] < TOL, (batch, r)
+        assert r["cache_err"] < TOL, (batch, r)
+        assert r["time_ways"] == [1], (batch, r)
 
 
 def test_input_specs_match_the_jax_shapes_and_dtypes():

@@ -13,6 +13,7 @@ the MoE cells count their dispatch as all-gather here; on the card's
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -209,6 +210,131 @@ def test_sharded_linear_counts_per_rank_flops_and_collectives():
     assert coll.weighted_bytes == 2 * (M // 2) * N * 4
 
 
+def _meta_dtensor(shape, placements, mesh, dtype=torch.float32):
+    from torch.distributed.tensor import DTensor, Shard
+    local = list(shape)
+    for m, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(m)
+    return DTensor.from_local(
+        torch.empty(local, dtype=dtype, device="meta"), mesh, placements,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+@pytest.mark.parametrize("M,K,cut", [(16, 64, True), (64, 16, False)])
+def test_matmul_cuts_a_replicated_product_with_few_rows(M, K, cut):
+    """``sharding.matmul``'s few-rows rule (``_MATMUL_FEW_ROWS``), both
+    operands replicated on a 2x4 mesh: with fewer rows than the
+    contraction (a weight's gradient) each rank multiplies its eighth of
+    the contraction and the result is partial on both mesh dims, with no
+    collective (cutting a replicated operand is local); with more rows
+    the product is whole on every rank.  GSPMD makes that cut inside a
+    step: without the rule, the granite decode cell of
+    ``tests/test_torch_dryrun_parity.py`` repeats 2x the work a rank
+    that the JAX step splits."""
+    from torch.distributed.tensor import Partial, Replicate
+    from repro_torch.dist import sharding
+    N = 32
+    with dryrun.fake_world(8):
+        mesh = dryrun._mesh((2, 4), "cpu")
+        x = _meta_dtensor((M, K), [Replicate(), Replicate()], mesh)
+        w = _meta_dtensor((K, N), [Replicate(), Replicate()], mesh)
+        trace = cost.OpTrace()
+        with trace:
+            y = sharding.matmul(x, w)
+    assert tuple(y.placements) == ((Partial(), Partial()) if cut else
+                                   (Replicate(), Replicate()))
+    assert trace.flops == 2 * M * N * K / (8 if cut else 1)
+    assert trace.collectives().total_bytes == 0
+
+
+def test_matmul_gathers_a_split_weight_to_a_decode_step_s_rows():
+    """A decode step's few rows on "data" against a weight split on
+    "data" (rows, FSDP) and "model" (columns): the weight's shard is
+    gathered over "data", one all-gather of (K, N/4) float32, as GSPMD
+    does for the same product (``tests/test_torch_dryrun_parity.py``
+    holds the bytes against the JAX compile); the rows do not move."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.dist import sharding
+    M, K, N = 8, 512, 1024
+    with dryrun.fake_world(8):
+        mesh = dryrun._mesh((2, 4), "cpu")
+        x = _meta_dtensor((M, K), [Shard(0), Replicate()], mesh)
+        w = _meta_dtensor((K, N), [Shard(0), Shard(1)], mesh)
+        trace = cost.OpTrace()
+        with trace:
+            y = sharding.matmul(x, w)
+    assert tuple(y.placements) == (Shard(0), Shard(1))
+    assert trace.flops == 2 * M * N * K / 8
+    coll = trace.collectives()
+    assert coll.counts["all-gather"] == 1
+    assert coll.total_bytes == coll.bytes_by_op["all-gather"] == \
+        K * (N // 4) * 4
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 4), (2, 4)])
+def test_matmul_moves_a_weight_shard_from_data_to_model(mesh_shape):
+    """A decode head: x (128 rows on "data") by w (768, 1000) with its
+    rows on "data" and nothing on "model".  The few-rows rule cuts the
+    contraction over "model", so w's split moves from "data" to "model":
+    where the two dims have one size each rank receives the one shard it
+    needs (an all-to-all of K/4 x N float32), as GSPMD's
+    collective-permute does; otherwise DTensor gathers w over "data"
+    (2 x that).  Either way the result's rows stay on "data", partial
+    over "model"."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.dist import sharding
+    D, Mo = mesh_shape
+    M, K, N = 128, 768, 1000
+    with dryrun.fake_world(D * Mo):
+        mesh = dryrun._mesh(mesh_shape, "cpu")
+        x = _meta_dtensor((M, K), [Shard(0), Replicate()], mesh)
+        w = _meta_dtensor((K, N), [Shard(0), Replicate()], mesh)
+        trace = cost.OpTrace()
+        with trace:
+            y = sharding.matmul(x, w)
+    assert tuple(y.placements) == (Shard(0), Partial())
+    assert trace.flops == 2 * M * N * K / (D * Mo)
+    coll = trace.collectives()
+    op = "all-to-all" if D == Mo else "all-gather"
+    assert coll.counts[op] == 1
+    assert coll.total_bytes == coll.bytes_by_op[op] == \
+        (K // D) * N * 4 * (1 if D == Mo else D)
+
+
+@pytest.mark.parametrize("n_ids,gathered", [(8, 8 * 4),
+                                            (512, (256 // 4) * 64 * 4)])
+def test_embed_rows_gathers_a_few_ids_or_else_the_table(n_ids, gathered):
+    """``sharding.embed_rows`` on a (256, 64) table, the vocabulary on
+    "model" and d on "data" (FSDP), ids on "data": 8 ids (and their
+    rows) move fewer elements than the table, so the int32 ids are
+    gathered and each rank looks up its d columns of every row; 512 ids
+    do not, so the table's vocabulary chunk is gathered over "data"
+    (transposed).  Either way the rows are partial over "model", each
+    rank holding its vocabulary chunk's."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.dist import sharding
+    rules = dict(sharding.DEFAULT_RULES)
+    with dryrun.fake_world(8):
+        mesh = dryrun._mesh((2, 4), "cpu")
+        with sharding.use_sharding(mesh, rules):
+            table = _meta_dtensor((256, 64), sharding.placements(
+                sharding.spec_for((256, 64), ("vocab", "embed"), rules,
+                                  mesh), 2, mesh), mesh)
+            assert tuple(table.placements) == (Shard(1), Shard(0))
+            ids = _meta_dtensor((8, n_ids // 8), [Shard(0), Replicate()],
+                                mesh, torch.int32)
+            trace = cost.OpTrace()
+            with trace:
+                rows = sharding.embed_rows(table, ids)
+    assert tuple(rows.placements) == (
+        (Shard(2) if n_ids == 8 else Shard(0)), Partial())
+    coll = trace.collectives()
+    assert coll.counts["all-gather"] == 1
+    assert coll.total_bytes == coll.bytes_by_op["all-gather"] == gathered
+
+
 SMALL = {"train": ShapeConfig("train_4k", 64, 8, "train"),
          "prefill": ShapeConfig("prefill_32k", 64, 8, "prefill"),
          "decode": ShapeConfig("decode_32k", 64, 8, "decode")}
@@ -265,6 +391,88 @@ def test_analyze_cell_at_smoke_size(family, kind):
         assert rec["collective_counts"]["all-gather"] > 0, rec
 
 
+def test_costs_come_from_the_measurement_config_memory_from_the_cell_s():
+    """qwen2.5-32b's train cell runs 4 microbatches: its cost keys are the
+    trace at ``measure_costs``' run config (one microbatch, no chunks),
+    as the JAX record's are, and its memory the trace at its own."""
+    arch, shape = "qwen2.5-32b", SMALL["train"]
+    cfg = get_arch(arch).smoke
+    run = dryrun.default_run_config(arch, shape.name)
+    assert run.microbatch == 4
+    cell = dryrun.analyze_cell(arch, shape, mesh_shape=(2, 4), cfg=cfg,
+                               device_type="cpu")
+    run_m = dryrun.measurement_run(run)
+    assert (run_m.microbatch, run_m.ce_chunk, run_m.attn_chunk,
+            run_m.scan_blocks) == (1, 0, 0, False)
+    measured = dryrun.analyze_cell(arch, shape, mesh_shape=(2, 4), cfg=cfg,
+                                   device_type="cpu", run=run_m)
+    assert cell["run_config"]["microbatch"] == 4
+    assert cell["scanned_module_costs"] == measured["scanned_module_costs"]
+    assert cell["flops_per_chip"] == measured["flops_per_chip"]
+    assert cell["collective_by_op"] == measured["collective_by_op"]
+    assert cell["measured_depths"] == [cfg.num_layers]
+    assert cell["measure_s"] > 0
+    from repro_torch.dist import sharding
+    rules = dict(sharding.DEFAULT_RULES,
+                 **dryrun.default_rules_override(arch))
+    with dryrun._cell_mesh(False, (2, 4), "cpu") as mesh:
+        own = dryrun._traced_step(cfg, shape, run, mesh, rules,
+                                  dryrun.default_opt_config(arch))
+    assert cell["memory"]["total_bytes_per_device"] == own.peak != \
+        measured["memory"]["total_bytes_per_device"]
+
+
+@pytest.mark.parametrize("kind,ce_chunk,attn_chunk,same", [
+    ("train", 512, 0, True), ("train", 32, 0, False),
+    ("prefill", 0, 128, True), ("prefill", 0, 16, False),
+    ("decode", 0, 16, True)])
+def test_eager_step_says_when_two_run_configs_trace_the_same_step(
+        kind, ce_chunk, attn_chunk, same):
+    """``RunConfig.eager_step`` (whether ``analyze_cell`` may take the
+    cell's own trace for ``measure_costs``' run config) agrees with the
+    traces: equal where a chunk does not split the 64 positions or a
+    decode step ignores it, different where it does."""
+    cfg = dataclasses.replace(get_arch("granite-3-2b").smoke, num_layers=1)
+    shape = SMALL[kind]
+    run = RunConfig(ce_chunk=ce_chunk, attn_chunk=attn_chunk,
+                    scan_blocks=False)
+    run_m = dryrun.measurement_run(run)
+    from repro_torch.dist import sharding
+    from repro_torch.optim import adamw
+    with dryrun.fake_world(1):
+        mesh = dryrun._mesh((1, 1), "cpu")
+        by_op = [dryrun._traced_step(cfg, shape, r, mesh,
+                                     dict(sharding.DEFAULT_RULES),
+                                     adamw.OptimConfig()).by_op
+                 for r in (run, run_m)]
+    assert (run.eager_step(shape.seq_len, kind) ==
+            run_m.eager_step(shape.seq_len, kind)) == same
+    assert (by_op[0] == by_op[1]) == same
+
+
+def test_peak_live_adds_up_to_the_peak():
+    """``OpTrace(detail=True)`` (``tools/dryrun_parity.py peak port``):
+    the storages it lists at the peak, each by the operation that
+    allocated it, and the resident tensors add up to the peak; without
+    ``detail`` it keeps no list and counts the same peak."""
+    from repro_torch.dist import sharding
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(get_arch("granite-3-2b").smoke, num_layers=2)
+    with dryrun.fake_world(8):
+        mesh = dryrun._mesh((2, 4), "cpu")
+        plain, detailed = (
+            dryrun._traced_step(cfg, SMALL["train"], RunConfig(), mesh,
+                                dict(sharding.DEFAULT_RULES),
+                                adamw.OptimConfig(), detail=d)
+            for d in (False, True))
+    assert plain.peak_live == [] and detailed.peak == plain.peak
+    assert detailed.peak_live and detailed.resident + sum(
+        nb for *_, nb in detailed.peak_live) == detailed.peak
+    for op, dtype, shape, nb in detailed.peak_live:
+        assert op in detailed.by_op and isinstance(dtype, torch.dtype)
+        assert nb >= math.prod(shape) * dtype.itemsize
+
+
 def test_roofline_divides_by_the_h100_profile():
     costs = {"flops": 989e12, "bytes": 3.35e12, "coll_weighted": 450e9}
     r = dryrun.roofline(costs, H100_SXM)
@@ -274,11 +482,7 @@ def test_roofline_divides_by_the_h100_profile():
     assert H100_SXM.link_count * H100_SXM.link_bw == 450e9
 
 
-def test_one_by_one_mesh_counts_what_the_meshless_step_counts():
-    """On a 1x1 mesh every layout is the whole tensor: the DTensor step's
-    local operations and bytes are the meshless step's (the rule of
-    ``chip_smoke.py::step_traffic``), granite-3-2b at full width, cut to
-    2 layers, at the trainer's 8 x 256 tokens."""
+def _one_by_one_counts_as_meshless(run: RunConfig) -> None:
     cfg = dataclasses.replace(get_arch("granite-3-2b").full, num_layers=2)
     shape = ShapeConfig("train_4k", 256, 8, "train")
     from repro_torch.dist import sharding
@@ -291,11 +495,11 @@ def test_one_by_one_mesh_counts_what_the_meshless_step_counts():
     batch = {k: meta((8, 256), torch.int32) for k in ("tokens", "labels")}
     plain = cost.OpTrace()
     with plain:
-        make_train_step(cfg, opt_cfg=adamw.OptimConfig())(params, state,
-                                                          batch)
+        make_train_step(cfg, run, opt_cfg=adamw.OptimConfig())(
+            params, state, batch)
     with dryrun.fake_world(1):
         mesh = dryrun._mesh((1, 1), "cpu")
-        traced = dryrun._traced_step(cfg, shape, RunConfig(), mesh,
+        traced = dryrun._traced_step(cfg, shape, run, mesh,
                                      dict(sharding.DEFAULT_RULES),
                                      adamw.OptimConfig())
     assert traced.collectives().total_bytes == 0
@@ -305,6 +509,22 @@ def test_one_by_one_mesh_counts_what_the_meshless_step_counts():
     assert not diff, diff
     assert (traced.ops, traced.bytes, traced.flops) == (
         plain.ops, plain.bytes, plain.flops)
+
+
+def test_one_by_one_mesh_counts_what_the_meshless_step_counts():
+    """On a 1x1 mesh every layout is the whole tensor: the DTensor step's
+    local operations and bytes are the meshless step's (the rule of
+    ``chip_smoke.py::step_traffic``), granite-3-2b at full width, cut to
+    2 layers, at the trainer's 8 x 256 tokens."""
+    _one_by_one_counts_as_meshless(RunConfig())
+
+
+def test_one_by_one_mesh_counts_what_the_meshless_step_counts_with_remat():
+    """The same under ``remat="full"`` (every train cell's default): the
+    recomputation in the backward stops where the meshless step's does,
+    after the last saved tensor of a layer, so each layer's last product
+    is not run again."""
+    _one_by_one_counts_as_meshless(RunConfig(remat="full"))
 
 
 def test_a_column_tiled_head_regathers_a_vocab_sharded_head():
