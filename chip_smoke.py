@@ -1253,9 +1253,13 @@ WALLCLOCK_GAP = 0.10
 DTUNE_TIE = 0.05
 
 
-def phase_conv_bf16(cases, fns, big, device):
+def phase_conv_bf16(cases, fns, big, device, timed):
     """Every conv sweep case with bfloat16 operands against conv2d_plain
-    and the float32 oracle of the same (rounded) inputs, at 3e-2."""
+    and the float32 oracle of the same (rounded) inputs, at 3e-2; then the
+    bfloat16 kernel at each ``timed`` (label, config, (H, W, Fh, Fw)) main
+    shape against ``F.conv2d`` in bfloat16, the two in turns, beside its
+    bound (:func:`conv_bf16_bound`).  A case that fails or cannot be
+    timed fails the phase."""
     rows = []
     for name, cfg, hw, filt, weight in cases:
         for size in (hw, big):
@@ -1279,7 +1283,45 @@ def phase_conv_bf16(cases, fns, big, device):
                 raise AssertionError(f"conv2d returned {out.dtype}: {row}")
             rows.append(row)
             _check_row(row, "conv", tag="conv-bf16")
-    return rows
+    times = []
+    for label, cfg, size in timed:
+        H, W, Fh, Fw = size
+        fn = cv.make_conv2d(H, W, Fh, Fw, cfg, dtype=torch.bfloat16)
+        img, f = (x.bfloat16() for x in conv_inputs(*size, device, seed=2))
+
+        def library():
+            return F.conv2d(img[None, None], f[None, None],
+                            padding=(Fh // 2, Fw // 2))
+
+        runs = time_in_turns({"kernel": lambda: fn(img, f),
+                              "library": library}, device)
+        out, lib = fn(img, f), library()[0, 0]
+        bound_ms, bound_by = conv_bf16_bound(H, W, Fh, Fw)
+        rec = {"label": label, "config": fn.config, "shape": list(size),
+               "ms": float(np.median(runs["kernel"])),
+               "library_ms": float(np.median(runs["library"])),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "err_library": max_err(out, lib),
+               "share_library": tol_share(out, lib, BF16_TOL, BF16_TOL),
+               "ms_runs": runs["kernel"], "library_ms_runs": runs["library"]}
+        rec["share_of_bound"] = bound_ms / rec["ms"]
+        print("[conv-bf16-times] " + json.dumps(
+            {k: v for k, v in rec.items() if not k.endswith("_runs")}))
+        if out.dtype != torch.bfloat16 or not rec["share_library"] <= 1.0:
+            raise AssertionError(f"bf16 conv against F.conv2d: {rec}")
+        times.append(rec)
+    return {"rows": rows, "times": times}
+
+
+def conv_bf16_bound(H, W, Fh, Fw):
+    """(ms, "bytes" or "operations"): the least time of a bfloat16 conv of
+    an (H, W) image by an (Fh, Fw) filter: its bytes at bfloat16 width
+    (image and filter read once, the output written once) over the HBM
+    rate, or its multiply-adds at the card's bfloat16 rate, the larger.
+    The kernel widens each operand to float32 and so runs at the float32
+    FMA rate; that is a cause of its time, not a bound on the work."""
+    return _bound(cv.conv_flops(H, W, Fh, Fw), 2.0 * (2 * H * W + Fh * Fw),
+                  peak=H100_SXM.peak_bf16_tensor_flops)
 
 
 def phase_wallclock_gap(main_path, device):
@@ -2424,8 +2466,8 @@ def phase_train(device, tmp, full, ckpt_full=True):
     return record
 
 
-def _bound(ops, nbytes):
-    t_ops = ops / H100_SXM.peak_f32_flops
+def _bound(ops, nbytes, peak=H100_SXM.peak_f32_flops):
+    t_ops = ops / peak
     t_bytes = nbytes / H100_SXM.hbm_bw
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -3028,6 +3070,15 @@ def main(argv=None):
         *flash_main, fa.heuristic_config(*flash_main))
     new = {"sdpa_route": sdpa_route}
 
+    def conv_timed():
+        """(label, config, shape) of the conv main shapes: the 3x3
+        search's best kernel config, the heuristic's at the large ones."""
+        rec = new["conv_main"]
+        return ([("conv {}x{} {}x{}".format(*conv_main),
+                  rec["best_kernel_config"], conv_main)]
+                + [("conv {}x{} {}x{}".format(*size), call["config"], size)
+                   for size, call in zip(conv_big, rec["calls"][1:])])
+
     def main_path():
         """(declaration, main-path record, shape) of each search."""
         M, N, K = main_shape
@@ -3044,12 +3095,13 @@ def main(argv=None):
                 + [flash_heur], device)),
             ("conv_sweep", lambda: phase_conv_sweep(ccases, conv_fns, big,
                                                     device)),
-            ("conv_bf16", lambda: phase_conv_bf16(ccases, conv_bf16_fns, big,
-                                                  device)),
             ("flash_sweep", lambda: phase_flash_sweep(fcases, flash_fns,
                                                       big_s, device)),
             ("conv_main", lambda: phase_conv_main(conv_main, conv_big, device,
                                                   conv_budget)),
+            # after the search: timed at its best config
+            ("conv_bf16", lambda: phase_conv_bf16(
+                ccases, conv_bf16_fns, big, device, conv_timed())),
             ("flash_main", lambda: phase_flash_main(flash_main, flash_lead,
                                                     device, flash_budget)),
             ("wallclock_gap", lambda: phase_wallclock_gap(main_path(),
@@ -3084,9 +3136,7 @@ def main(argv=None):
     flash_label = "flash {}x{}x{}x{}".format(*flash_lead, S, D)
     t0 = time.perf_counter()
     new["times_new"] = phase_times_new(
-        [(conv_label, conv_rec["best_kernel_config"], conv_main)]
-        + [("conv {}x{} {}x{}".format(*size), call["config"], size)
-           for size, call in zip(conv_big, conv_rec["calls"][1:])],
+        conv_timed(),
         [(f"flash {S}x{D}", flash_rec["winner"], ((), S, D), 50),
          (flash_label, flash_rec["winner"], (flash_lead, S, D), 10)],
         device)

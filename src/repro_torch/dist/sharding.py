@@ -28,9 +28,13 @@ becomes a reduce-scatter or an all-reduce there, as GSPMD resolves it)
 and refuses a plain tensor.
 
 Where DTensor has no sharding rule for the maths, :func:`run_local` runs
-a function on each rank's shards (DTensor's ``local_map``, layouts given
-as specs) and :func:`local_range` tells a rank which chunk of a
-dimension, named by logical axes, it holds.
+a function on each rank's shards (DTensor's ``local_map``), its layouts
+given as logical axes; :func:`rank_slice` tells a rank which chunk of a
+logical dimension it holds, :func:`is_split` whether the rules lay a
+dimension out over mesh axes at all (on axes of extent 1 too) and
+:func:`is_cut` whether a rank holds only a part of it.  The models call only these,
+``shard``, :func:`relayout` and the product helpers: they name logical
+axes, never a spec or a mesh axis, so each layout rule lives here once.
 """
 
 from __future__ import annotations
@@ -142,23 +146,29 @@ def spec_for(shape: Sequence[int], axes: Sequence[Optional[str]],
     """
     sizes = mesh_sizes(mesh)
     used: set = set()
-    entries: List[Any] = []
-    for dim, logical in zip(shape, axes):
-        entry = None
-        if logical is not None:
-            mapped = rules.get(logical)
-            names = (tuple(mapped) if isinstance(mapped, (tuple, list))
-                     else (mapped,) if mapped is not None else ())
-            cand = [m for m in names if m in sizes and m not in used]
-            if cand:
-                extent = math.prod(sizes[m] for m in cand)
-                if dim % extent == 0:
-                    used.update(cand)
-                    entry = cand[0] if len(cand) == 1 else tuple(cand)
-        entries.append(entry)
+    entries: List[Any] = [None if logical is None
+                          else _claim(dim, logical, rules, sizes, used)
+                          for dim, logical in zip(shape, axes)]
     while entries and entries[-1] is None:
         entries.pop()
     return tuple(entries)
+
+
+def _claim(dim: int, logical: str, rules: Mapping[str, Any],
+           sizes: Mapping[str, int], used: set) -> Any:
+    """The spec entry of a dimension of length ``dim`` with axis
+    ``logical``: the mesh axes its rule names that are present and not in
+    ``used``, if ``dim`` divides their extent (then added to ``used``),
+    else None.  The one resolution rule of :func:`spec_for` and
+    :func:`_axis_table`."""
+    mapped = rules.get(logical)
+    names = (tuple(mapped) if isinstance(mapped, (tuple, list))
+             else (mapped,) if mapped is not None else ())
+    cand = [m for m in names if m in sizes and m not in used]
+    if not cand or dim % math.prod(sizes[m] for m in cand):
+        return None
+    used.update(cand)
+    return cand[0] if len(cand) == 1 else tuple(cand)
 
 
 def placements(spec: Spec, ndim: int, mesh) -> Tuple[Any, ...]:
@@ -257,7 +267,7 @@ def per_batch(fn, *args, outs: int = 1):
         return fn(*args)
     ref = next(a for a in args if isinstance(a, torch.Tensor))
     lead = scope_spec((ref.shape[0],), ("batch",))
-    return run_local(fn, args, [lead] * len(args), [lead] * outs)
+    return _run_local(fn, args, [lead] * len(args), [lead] * outs)
 
 
 def chunk_of(entry: Any, length: int) -> Tuple[Tuple[int, ...], int, int]:
@@ -283,13 +293,31 @@ def chunk_of(entry: Any, length: int) -> Tuple[Tuple[int, ...], int, int]:
     return dims, index * step, (index + 1) * step
 
 
-def local_range(shape: Sequence[int], axes: Sequence[Optional[str]],
-                dim: int) -> Tuple[Tuple[int, ...], int, int]:
-    """(mesh dims, lo, hi): this rank's chunk ``[lo, hi)`` of dimension
-    ``dim`` of a tensor of ``shape`` laid out by logical ``axes`` under
-    the scope (:func:`chunk_of` of that dimension's spec entry); the
-    whole dimension and no mesh dims outside a scope."""
-    return chunk_of(scope_spec(shape, axes)[dim], shape[dim])
+def rank_slice(shape: Sequence[int], axes: Sequence[Optional[str]],
+               dim: int) -> Tuple[int, int]:
+    """``(lo, hi)``: this rank's chunk of dimension ``dim`` of a tensor of
+    ``shape`` laid out by logical ``axes`` under the scope (:func:`chunk_of`
+    of that dimension's spec entry); the whole dimension outside a scope or
+    where the rules leave it whole."""
+    return chunk_of(scope_spec(shape, axes)[dim], shape[dim])[1:]
+
+
+def is_split(shape: Sequence[int], axes: Sequence[Optional[str]],
+             dim: int) -> bool:
+    """Whether the scope's rules lay dimension ``dim`` of a tensor of
+    ``shape`` with logical ``axes`` out over mesh axes: its spec entry is
+    not None, on axes of extent 1 too, so that a 1x1 mesh runs the code
+    path a larger mesh runs.  False outside a scope."""
+    return scope_spec(shape, axes)[dim] is not None
+
+
+def is_cut(shape: Sequence[int], axes: Sequence[Optional[str]],
+           dim: int) -> bool:
+    """Whether this rank holds only a part of dimension ``dim`` of a
+    tensor of ``shape`` with logical ``axes``: the rules lay it out over
+    mesh axes whose extent is above 1.  Unlike :func:`is_split`, false on
+    a 1x1 mesh, where each rank holds the whole dimension."""
+    return bool(chunk_of(scope_spec(shape, axes)[dim], shape[dim])[0])
 
 
 def reshape(x: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
@@ -372,8 +400,8 @@ def take_last(x: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
 
     xspec = lead + (None,) * (x.dim() - 1 - len(lead)) + (
         vocab if dims else None,)
-    return replicate(run_local(gather, (x, index), (xspec, lead), (lead,),
-                               partial=dims), dims)
+    return replicate(_run_local(gather, (x, index), (xspec, lead), (lead,),
+                                partial=dims), dims)
 
 class _ContiguousGrad(torch.autograd.Function):
     """The identity, whose gradient is made contiguous."""
@@ -387,11 +415,12 @@ class _ContiguousGrad(torch.autograd.Function):
         return g.contiguous()
 
 
-def run_local(fn, args: Sequence[Any], specs: Sequence[Optional[Spec]],
-              out_specs: Sequence[Spec], partial: Sequence[int] = ()):
+def _run_local(fn, args: Sequence[Any], specs: Sequence[Optional[Spec]],
+               out_specs: Sequence[Spec], partial: Sequence[int] = ()):
     """``fn`` on each rank's shards, for maths that is independent along
     the split dimensions (per batch row, per head): DTensor's
-    ``local_map``, with layouts given as specs.
+    ``local_map``, with layouts given as specs (:func:`run_local` takes
+    logical axes).
 
     Outside a scope it is ``fn(*args)``.  Inside one each tensor argument
     is laid out by its spec (a tuple of mesh-axis entries per dimension,
@@ -598,6 +627,155 @@ class _Matmul(torch.autograd.Function):
         return gx, gw, None
 
 
+def project_heads(x: torch.Tensor, w: torch.Tensor, group: int,
+                  axes: Axes, bias: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """``repeat_interleave(x @ w + bias, group, dim=2)`` for ``x`` (B, S, d),
+    ``w`` (d, KV, hd) and ``bias`` (KV, hd): the keys or values of an
+    attention whose KV heads are repeated over its ``KV * group`` query
+    heads, laid out by ``axes`` (B, S, heads, hd).
+
+    The layout rule of a product whose weight's output dims cannot take
+    the mesh axis that splits the query heads (KV does not divide its
+    extent M: granite-3-2b's 8 KV heads on 16 "model" ranks), as GSPMD
+    lays it out: each rank gathers (FSDP) only the columns of the KV head
+    its own query heads use and projects it, so the M / KV ranks whose
+    query heads share a KV head each project it whole (the JAX compile's
+    one KV head a rank, two ranks a head); nothing else is gathered.  In
+    the backward each rank multiplies its own part of the head's
+    gradient into ``x``'s (left partial over that axis), and the ranks of
+    a head sum their parts (an all-reduce among them) and each forms its
+    own rows of ``w``'s gradient (zero outside them, partial over the
+    mesh axes; the parameter's own layout reduces it).  Raises outside a
+    scope, or where the rules split the query heads over no mesh dim,
+    over more than one, or over one whose extent KV does not divide.
+    """
+    B, S, d = x.shape
+    KV, hd = w.shape[1], w.shape[2]
+    mesh = current_mesh()
+    spec = scope_spec((B, S, KV * group, hd), axes)
+    hdims, lo, hi = chunk_of(spec[2], KV * group)
+    if len(hdims) != 1 or mesh.size(hdims[0]) % KV:
+        raise ValueError(f"project_heads{tuple(axes)}: {KV} KV heads on "
+                         f"the query heads' mesh dims {hdims} of {mesh}")
+    x = relayout(x, axes[0], axes[1], None)
+    _, Replicate, Shard, Partial = _api()
+    for m, p in enumerate(w.placements):
+        if isinstance(p, Partial) or (isinstance(p, Shard) and p.dim) or \
+                (m in hdims and not isinstance(p, Replicate)):
+            raise ValueError(f"project_heads: a weight laid out {w.placements}"
+                             f" (want its KV heads whole on mesh dims {hdims})")
+    # the ranks of one KV head: consecutive blocks along the heads' dim
+    dim, size = hdims[0], mesh.size(hdims[0]) // KV
+    sub = _split_mesh(mesh, dim, size)
+    return _HeadProjection.apply(
+        x, w, bias, group, (lo, hi, lo // group),
+        (dim, sub, mesh.get_local_rank(dim) % size, size),
+        placements(spec, 4, mesh))
+
+
+def _split_mesh(mesh, dim: int, size: int):
+    """``mesh`` with its dim ``dim`` viewed as (extent / size, size): the
+    same ranks, whose last new dim (``dim + 1``) groups ``size``
+    consecutive ones.  Built once a mesh (its process groups are made
+    collectively, so every rank builds it at the same point)."""
+    cache = mesh.__dict__.setdefault("_split_meshes", {})
+    if (dim, size) not in cache:
+        from torch.distributed.device_mesh import DeviceMesh
+        shape = list(mesh.mesh.shape)
+        shape[dim:dim + 1] = [shape[dim] // size, size]
+        names = list(mesh.mesh_dim_names)
+        names[dim:dim + 1] = [names[dim] + "_outer", names[dim] + "_inner"]
+        cache[(dim, size)] = DeviceMesh(mesh.device_type,
+                                        mesh.mesh.reshape(shape),
+                                        mesh_dim_names=tuple(names))
+    return cache[(dim, size)]
+
+
+def _gather_columns(w, k0: int, k1: int) -> torch.Tensor:
+    """The local (d, k1 - k0, ...) columns ``[k0, k1)`` of a DTensor ``w``
+    whole on every mesh dim but those that split its rows (FSDP), gathered
+    over those: a gather of the columns alone."""
+    DTensor, Replicate, Shard, _ = _api()
+    local = w.to_local()[:, k0:k1]
+    split = [p if isinstance(p, Shard) else Replicate() for p in w.placements]
+    if all(isinstance(p, Replicate) for p in split):
+        return local
+    shape = (w.shape[0],) + tuple(local.shape[1:])
+    cols = DTensor.from_local(local.contiguous(), w.device_mesh, split,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta").stride())
+    return cols.redistribute(w.device_mesh,
+                             [Replicate()] * w.device_mesh.ndim).to_local()
+
+
+class _HeadProjection(torch.autograd.Function):
+    """:func:`project_heads` on each rank's KV head ``k0``, of which its
+    query heads ``[lo, hi)`` take ``copies`` each; ``ranks`` (mesh dim,
+    split mesh, this rank's index among the head's ranks, their count)
+    names the ranks of that head."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, copies, heads, ranks, out_pl):
+        DTensor = _api()[0]
+        lo, hi, k0 = heads
+        B, S, d = x.shape
+        KV, hd = w.shape[1], w.shape[2]
+        xl = x.to_local()
+        wl = _gather_columns(w, k0, k0 + 1)[:, 0]            # (d, hd)
+        out = (xl.reshape(-1, d) @ wl).reshape(xl.shape[:2] + (1, hd))
+        if bias is not None:
+            out = out + bias.to_local()[k0]
+        out = out.expand(xl.shape[:2] + (hi - lo, hd))
+        ctx.save_for_backward(x, wl)
+        ctx.layout = (k0, ranks, KV, out_pl)
+        H = KV * copies
+        return DTensor.from_local(out.contiguous(), x.device_mesh, out_pl,
+                                  run_check=False,
+                                  shape=torch.Size((B, S, H, hd)),
+                                  stride=(S * H * hd, H * hd, hd, 1))
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed._functional_collectives import all_reduce
+        DTensor, Replicate, Shard, Partial = _api()
+        k0, (dim, sub, index, size), KV, out_pl = ctx.layout
+        x, wl = ctx.saved_tensors
+        mesh = x.device_mesh
+        if tuple(g.placements) != out_pl:
+            g = g.redistribute(mesh, out_pl)
+        dk = g.to_local().sum(dim=2)                # this rank's part (.., hd)
+        dk2 = dk.reshape(-1, dk.shape[-1])
+        xl = x.to_local()
+        d = xl.shape[-1]
+        # x's gradient: partial over the heads' mesh dim (each rank's query
+        # heads contribute their part)
+        gx = DTensor.from_local(
+            (dk2 @ wl.t()).reshape(xl.shape), mesh,
+            [Partial() if m == dim else p for m, p in enumerate(x.placements)],
+            run_check=False, shape=x.shape, stride=x.stride())
+        # w's and bias's: the head's parts summed among its ranks, each
+        # rank forming its rows of the head's columns; zero elsewhere,
+        # partial over the heads' dim and over the dims that split x
+        rows = [Partial() if m == dim or isinstance(p, Shard) else Replicate()
+                for m, p in enumerate(x.placements)]
+        gw = gb = None
+        if ctx.needs_input_grad[1]:
+            total = all_reduce(dk2, "sum", (sub, dim + 1)) if size > 1 \
+                else dk2
+            r0, r1 = index * d // size, (index + 1) * d // size
+            full = wl.new_zeros((d, KV, wl.shape[-1]))
+            full[r0:r1, k0] = xl.reshape(-1, d)[:, r0:r1].t() @ total
+            gw = DTensor.from_local(full, mesh, rows, run_check=False,
+                                    shape=full.shape, stride=full.stride())
+        if ctx.needs_input_grad[2]:
+            full = dk2.new_zeros((KV, dk2.shape[-1]))
+            full[k0] = dk2.sum(dim=0)
+            gb = DTensor.from_local(full, mesh, rows, run_check=False,
+                                    shape=full.shape, stride=full.stride())
+        return gx, gw, gb, None, None, None, None
+
+
 def scope_spec(shape: Sequence[int], axes: Sequence[Optional[str]]) -> Spec:
     """``spec_for`` under the scope's rules and mesh, padded with None to
     one entry per dim (all None outside a scope)."""
@@ -607,6 +785,113 @@ def scope_spec(shape: Sequence[int], axes: Sequence[Optional[str]]) -> Spec:
     mesh, rules = ctx
     spec = spec_for(shape, axes, rules, mesh)
     return spec + (None,) * (len(shape) - len(spec))
+
+
+#: a tensor's layout in logical terms: one logical axis (or None) a dim
+Axes = Tuple[Optional[str], ...]
+
+
+def _axis_table(items: Sequence[Tuple[Optional[Sequence[int]], Axes]],
+                rules: Mapping[str, Any], mesh) -> Dict[str, Any]:
+    """{logical axis: spec entry} for the tensors of one local computation,
+    ``items`` as (shape, logical axes), resolved jointly: an axis takes its
+    entry where it first appears (the rules' mesh axes less those an
+    earlier axis claimed, if the dimension divides their extent) and keeps
+    it in every later tensor, so that the operands of the computation
+    agree on each axis.  For the first tensor this is :func:`spec_for`.
+    A result's axes (shape None) must all have appeared before."""
+    sizes = mesh_sizes(mesh)
+    table: Dict[str, Any] = {}
+    used: set = set()
+    for shape, axes in items:
+        for i, name in enumerate(axes):
+            if name is None or name in table:
+                continue
+            if shape is None:
+                raise ValueError(f"logical axis {name!r} of a result is on "
+                                 f"no operand: name its layout in ``like``")
+            table[name] = _claim(shape[i], name, rules, sizes, used)
+    return table
+
+
+def _table_spec(shape: Optional[Sequence[int]], axes: Axes,
+                table: Mapping[str, Any], mesh) -> Spec:
+    """The spec of a tensor with logical ``axes`` under ``table``; raises
+    where an operand's dimension does not divide its entry's extent."""
+    sizes = mesh_sizes(mesh)
+    spec = []
+    for i, name in enumerate(axes):
+        entry = None if name is None else table[name]
+        if entry is not None and shape is not None:
+            extent = math.prod(sizes[m] for m in (
+                entry if isinstance(entry, tuple) else (entry,)))
+            if shape[i] % extent:
+                raise ValueError(f"dim {i} of {tuple(shape)} ({name!r}) does "
+                                 f"not divide {entry} ({extent})")
+        spec.append(entry)
+    return tuple(spec)
+
+
+def run_local(fn, args: Sequence[Any], in_axes: Sequence[Optional[Axes]],
+              out_axes: Sequence[Axes], partial: Sequence[str] = (),
+              like: Optional[Tuple[Sequence[int], Axes]] = None):
+    """``fn`` on each rank's shards, its layouts given as logical axes:
+    for maths that is independent along the split dimensions (per batch
+    row, per head) and that DTensor has no sharding rule for.
+
+    ``in_axes`` has one entry an argument: a tuple of logical axes, one a
+    leading dim (``()``: replicated), or None (a DTensor keeps its layout:
+    an in-place buffer; a non-tensor argument).  ``out_axes`` has one
+    tuple a result.  The axes are resolved jointly (:func:`_axis_table`):
+    ``like`` (shape, axes) first when given, then the arguments in order,
+    so every tensor agrees with the first on the axes they share.  Over
+    the mesh axes of the logical axes in ``partial`` the results are
+    partial sums (each rank summed its own part of the work; the caller's
+    next ``shard`` or :func:`replicate` adds them up).  Outside a scope it
+    is ``fn(*args)``; inside one :func:`_run_local` with the specs."""
+    ctx = current()
+    if ctx is None:
+        return fn(*args)
+    mesh, rules = ctx
+    tensors = [(a, ax) for a, ax in zip(args, in_axes)
+               if isinstance(a, torch.Tensor) and ax is not None]
+    table = _axis_table(([like] if like else [])
+                        + [(tuple(a.shape), ax) for a, ax in tensors]
+                        + [(None, ax) for ax in out_axes], rules, mesh)
+    specs = [_table_spec(a.shape, ax, table, mesh)
+             if isinstance(a, torch.Tensor) and ax is not None else None
+             for a, ax in zip(args, in_axes)]
+    outs = [_table_spec(None, ax, table, mesh) for ax in out_axes]
+    dims = tuple(sorted({m for name in partial
+                         for m in chunk_of(table[name], 1)[0]}))
+    return _run_local(fn, args, specs, outs, partial=dims)
+
+
+def relayout(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
+    """``x`` laid out by logical axes as :func:`shard` lays it out, its
+    gradient returned in ``x``'s own layout (DTensor's redistribution)
+    instead of being held to the new one: for a value gathered once where
+    the maths needs it whole, whose gradient goes back to the shard it
+    came from (a reduce-scatter of a partial sum, a slice of a replicated
+    one).  ``x`` itself outside a scope or where it is laid out so
+    already; a plain tensor inside a scope raises, as in :func:`shard`."""
+    ctx = current()
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    if not _is_dtensor(x):
+        raise TypeError(f"relayout{axes}: a plain {type(x).__name__} inside "
+                        f"a mesh scope; distribute it first")
+    want = placements(spec_for(x.shape, axes, rules, mesh), x.dim(), mesh)
+    if tuple(x.placements) == want:
+        return x
+    out = x.redistribute(mesh, want)
+    local = out.to_local()
+    # a shard cut from a whole tensor is a view of it: copied, so that the
+    # whole can be freed while the shard is kept (a saved layer input)
+    if local.untyped_storage().nbytes() > local.numel() * local.itemsize:
+        out = out.clone()
+    return out
 
 
 def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
@@ -648,11 +933,11 @@ def embed_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     if few:
         names = tuple(table.device_mesh.mesh_dim_names[m] for m in split_d)
         d_entry = names[0] if len(names) == 1 else names
-        return run_local(rows, (table, ids), ((entry, d_entry), ()),
-                         ((None,) * ids.dim() + (d_entry,),), partial=dims)
-    return run_local(rows, (table.t() if flip else table, ids),
-                     ((None, entry) if flip else (entry,), lead), (lead,),
-                     partial=dims)
+        return _run_local(rows, (table, ids), ((entry, d_entry), ()),
+                          ((None,) * ids.dim() + (d_entry,),), partial=dims)
+    return _run_local(rows, (table.t() if flip else table, ids),
+                      ((None, entry) if flip else (entry,), lead), (lead,),
+                      partial=dims)
 
 def replicate(x: torch.Tensor, dims: Optional[Sequence[int]] = None
               ) -> torch.Tensor:

@@ -17,8 +17,9 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import (local_range, matmul, mean_over, reshape,
-                             run_local, scope_spec, shard)
+from ..dist.sharding import (is_cut, is_split, matmul, mean_over,
+                             project_heads, rank_slice, reshape, run_local,
+                             shard)
 from .config import ModelConfig
 from .params import ParamDef
 
@@ -209,9 +210,14 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     G = H // KV
     hd = cfg.resolved_head_dim
 
-    rows = scope_spec((B, S), ("batch", "seq_attn"))
     names = ("wq", "wk", "wv") + (("bq", "bk", "bv") if cfg.qkv_bias else ())
-    if cache is None and rows[1] is not None:
+    expand = cache is None and mode == "expanded" and G > 1
+    # expanded K/V whose KV heads cannot follow the query heads' split:
+    # each rank projects only the KV heads its query heads use
+    # (``sharding.project_heads``), already repeated to those heads
+    by_heads = expand and is_split((B, S, H, 1, hd), Q_AXES, 2) and \
+        not is_split((B, S, KV, G, hd), Q_AXES, 2)
+    if cache is None and is_split((B, S), ("batch", "seq_attn"), 1):
         # sequence-parallel attention: each rank projects its own
         # positions (GSPMD cuts the products along the sequence that q's
         # layout splits); K and V are gathered along it below
@@ -221,9 +227,15 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
             return tuple(o + b for o, b in zip(out, w[3:])) \
                 if cfg.qkv_bias else tuple(out)
 
-        spec = rows + (None, None)
         q, k, v = run_local(qkv, (x,) + tuple(p[n] for n in names),
-                            (rows,) + ((),) * len(names), (spec,) * 3)
+                            (("batch", "seq_attn"),) + ((),) * len(names),
+                            (("batch", "seq_attn", None, None),) * 3)
+    elif by_heads:
+        q = _proj(x, p["wq"], 1)
+        k, v = (project_heads(x, p[w], G, KV_BY_HEADS_AXES, p.get(b))
+                for w, b in (("wk", "bk"), ("wv", "bv")))
+        if cfg.qkv_bias:
+            q = q + p["bq"]
     else:
         q = _proj(x, p["wq"], 1)
         k = _proj(x, p["wk"], 1)
@@ -236,7 +248,6 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     if cache is not None and _decode_by_query_heads(q.shape, KV, cache):
         return _decode_by_heads(cfg, p, q, k, v, positions, cache,
                                 int(cache_pos), x.dtype)
-    expand = cache is None and mode == "expanded" and G > 1
     KV_eff, G_eff = (H, 1) if expand else (KV, G)
     q = reshape(q, (B, S, KV_eff, G_eff, hd))
     q = shard(q, *Q_AXES)
@@ -247,18 +258,18 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
     # the attention itself (rotary embedding, K/V expansion, scores,
     # softmax, P.V) runs on each rank's batch rows and heads: q's layout
     # decides them, K/V and the positions follow (run_local)
-    qs = scope_spec(q.shape, Q_AXES)
-    b, s_, h = qs[:3]
     theta = cfg.rope_theta
     if cache is None:
         # expanded K/V are repeated on each rank, then cut to q's heads
-        _, lo, hi = local_range(q.shape, Q_AXES, 2)
-        kspec = (b, None, None if expand else h)
+        # (``project_heads`` has cut them already)
+        lo, hi = rank_slice(q.shape, Q_AXES, 2)
+        repeat = expand and not by_heads
+        kaxes = ("batch", None, None if repeat else "kv_heads")
 
         def core(q, k, v, qpos, kpos):
             q = apply_rope(q, qpos, theta)
             k = apply_rope(k, kpos, theta)
-            if expand:
+            if repeat:
                 k = torch.repeat_interleave(k, G, dim=2)[:, :, lo:hi]
                 v = torch.repeat_interleave(v, G, dim=2)[:, :, lo:hi]
             if effective_chunk(attn_chunk, k.shape[1]):
@@ -268,14 +279,15 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                                       k_positions=kpos)
 
         out = run_local(core, (q, k, v, positions, positions),
-                        (qs, kspec, kspec, (b, s_), (b, None)), (qs,))
+                        (Q_AXES, kaxes, kaxes, ("batch", "seq_attn"),
+                         ("batch", None)), (Q_AXES,))
         new_cache = None
     else:
         # decode: S == 1; insert k/v at cache_pos, attend over the buffer.
         # The cache keeps its layout (written in place)
         pos = int(cache_pos)
         new_cache = cache
-        if local_range(cache["k"].shape, CACHE_AXES, 1)[0]:
+        if _time_split(cache["k"]):
             out = _decode_time_split(q, k, v, positions, cache, pos, theta)
         else:
             def core(q, k, v, qpos, ck, cv):
@@ -292,10 +304,11 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
                                           k_positions=k_positions,
                                           k_valid_len=valid)
 
+            kaxes = ("batch", None, "kv_heads")
             out = run_local(core, (q, k, v, positions, cache["k"],
                                    cache["v"]),
-                            (qs, (b, None, h), (b, None, h), (b, s_), None,
-                             None), (qs,))
+                            (Q_AXES, kaxes, kaxes, ("batch", "seq_attn"),
+                             None, None), (Q_AXES,))
 
     out = reshape(out, (B, S, H, hd)).to(x.dtype)
     return shard(_proj(out, p["wo"], 2), "batch", "seq", "embed"), new_cache
@@ -305,6 +318,11 @@ def apply_attention(cfg: ModelConfig, p: Dict[str, torch.Tensor],
 HEAD_AXES = ("batch", "seq_attn", "heads", None)
 
 
+def _time_split(ck: torch.Tensor) -> bool:
+    """Whether the rules split a KV cache leaf's time dim over the mesh."""
+    return is_cut(ck.shape, CACHE_AXES, 1)
+
+
 def _decode_by_query_heads(qshape, KV: int, cache) -> bool:
     """Whether a decode step splits its attention by query heads: the
     rules leave the KV heads (and the cache's time) whole on the mesh
@@ -312,11 +330,10 @@ def _decode_by_query_heads(qshape, KV: int, cache) -> bool:
     would attend for all heads; the JAX package's compiled step splits
     the query heads there."""
     B, S, H, hd = qshape
-    if local_range(cache["k"].shape, CACHE_AXES, 1)[0]:
+    if _time_split(cache["k"]):
         return False
-    kv = scope_spec((B, S, KV, hd), CACHE_AXES)[2]
-    return kv is None and H != KV and \
-        scope_spec(qshape, HEAD_AXES)[2] is not None
+    return H != KV and not is_split((B, S, KV, hd), CACHE_AXES, 2) and \
+        is_split(qshape, HEAD_AXES, 2)
 
 
 def _decode_by_heads(cfg, p, q, k, v, positions, cache, pos: int, dtype):
@@ -325,13 +342,10 @@ def _decode_by_heads(cfg, p, q, k, v, positions, cache, pos: int, dtype):
     k/v into its copy and attends each of its heads over its KV head (the
     head's index over G).  Returns the block's output, as
     :func:`apply_attention` does."""
-    B, S, H, hd = q.shape
-    G = H // cfg.num_kv_heads
+    G = q.shape[2] // cfg.num_kv_heads
     theta = cfg.rope_theta
     q = shard(q, *HEAD_AXES)
-    qs = scope_spec(q.shape, HEAD_AXES)
-    b, s_ = qs[:2]
-    _, lo, hi = local_range(q.shape, HEAD_AXES, 2)
+    lo, hi = rank_slice(q.shape, HEAD_AXES, 2)
 
     def core(q, k, v, qpos, ck, cv):
         q = apply_rope(q, qpos, theta)
@@ -349,9 +363,10 @@ def _decode_by_heads(cfg, p, q, k, v, positions, cache, pos: int, dtype):
                                  k_positions=k_positions, k_valid_len=valid)
         return out[..., 0, :]
 
+    kaxes = ("batch", None, None)
     out = run_local(core, (q, k, v, positions, cache["k"], cache["v"]),
-                    (qs, (b, None, None), (b, None, None), (b, s_), None,
-                     None), (qs,)).to(dtype)
+                    (HEAD_AXES, kaxes, kaxes, ("batch", "seq_attn"), None,
+                     None), (HEAD_AXES,)).to(dtype)
     return shard(_proj(out, p["wo"], 2), "batch", "seq", "embed"), cache
 
 
@@ -362,9 +377,8 @@ def _decode_time_split(q, k, v, positions, cache, pos: int, theta: float):
     writes k/v there, every rank attends over its own chunk, and the
     chunks' outputs are merged by their log-sum-exp (an all-gather of one
     query's outputs over the time axes).  Returns (B, 1, KV, G, hd)."""
-    cs = scope_spec(cache["k"].shape, CACHE_AXES)
-    b, t, h = cs[:3]
-    _, lo, hi = local_range(cache["k"].shape, CACHE_AXES, 1)
+    like = (cache["k"].shape, CACHE_AXES)
+    lo, hi = rank_slice(cache["k"].shape, CACHE_AXES, 1)
     at = min(max(pos, 0), cache["k"].shape[1] - 1)    # write_clamped's index
 
     def core(q, k, v, qpos, ck, cv):
@@ -380,19 +394,24 @@ def _decode_time_split(q, k, v, positions, cache, pos: int, theta: float):
                                       k_positions=kpos, with_lse=True)
         return out[None], lse[None]
 
+    heads = ("batch", None, "kv_heads")
     parts, lse = run_local(core, (q, k, v, positions, cache["k"], cache["v"]),
-                           ((b, None, h), (b, None, h), (b, None, h),
-                            (b, None), None, None),
-                           ((t, b, None, h), (t, b, h)))
+                           (heads, heads, heads, ("batch", None), None,
+                            None),
+                           (("seq_kv",) + heads,
+                            ("seq_kv", "batch", "kv_heads")), like=like)
     return run_local(lambda o, l: merge_chunks(o, l, "bkgs,bskgh"),
-                     (parts, lse), ((None, b, None, h), (None, b, h)),
-                     ((b, None, h),))
+                     (parts, lse), ((None,) + heads,
+                                    (None, "batch", "kv_heads")),
+                     (heads,), like=like)
 
 
-#: the logical axes of a KV cache leaf (B, T, KV, hd) and of the grouped
-#: query (B, S, KV, G, hd)
+#: the logical axes of a KV cache leaf (B, T, KV, hd), of the grouped
+#: query (B, S, KV, G, hd) and of keys or values repeated to the query
+#: heads (B, T, H, hd)
 CACHE_AXES = ("batch", "seq_kv", "kv_heads", "head_dim")
 Q_AXES = ("batch", "seq_attn", "kv_heads", None, None)
+KV_BY_HEADS_AXES = ("batch", None, "kv_heads", None)
 
 
 def attention_cache_defs(cfg: ModelConfig, batch: int, max_len: int

@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from ..dist.sharding import local_range, run_local, scope_spec, shard
+from ..dist.sharding import is_cut, rank_slice, run_local, shard
 from .config import ModelConfig
 from .layers import (_proj, apply_rope, merge_chunks, norm_defs, rms_norm,
                      write_clamped)
@@ -94,8 +94,8 @@ def apply_mla(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 
     q = _project_q(cfg, p, x)
     c_kv, k_rope = _project_latent(cfg, p, x)
-    qs = scope_spec(q.shape, ("batch", "seq", "heads", None))
-    b, s_, h = qs[:3]
+    qaxes = ("batch", "seq", "heads", None)
+    heads = ("batch", None, "heads")
 
     if cache is None:
         # train/prefill: expand K and V per head
@@ -115,8 +115,8 @@ def apply_mla(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             return torch.einsum("bhst,bthk->bshk", probs, v.float())
 
         out = run_local(core, (q, k_rope, k_nope, v, positions, positions),
-                        (qs, (b,), (b, None, h), (b, None, h), (b, s_),
-                         (b, None)), (qs,))
+                        (qaxes, ("batch",), heads, heads, ("batch", "seq"),
+                         ("batch", None)), (qaxes,))
         new_cache = None
     else:
         # decode: absorbed-weight attention over the latent cache, written
@@ -125,8 +125,9 @@ def apply_mla(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
         # their log-sum-exp
         pos = int(cache_pos)
         dtype = x.dtype
-        tdims, lo, hi = local_range(cache["c_kv"].shape, LATENT_AXES, 1)
-        at = min(max(pos, 0), cache["c_kv"].shape[1] - 1)
+        T = cache["c_kv"].shape[1]
+        lo, hi = rank_slice(cache["c_kv"].shape, LATENT_AXES, 1)
+        at = min(max(pos, 0), T - 1)
 
         def attend(q, c_kv, k_rope, qpos, cc, cr, wk_b):
             """(o_lat (B, S, H, kvr) float32, masked scores (B, H, S, T))
@@ -149,43 +150,41 @@ def apply_mla(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
 
         args = (q, c_kv, k_rope, positions, cache["c_kv"], cache["k_rope"],
                 p["wk_b"])
-        if not tdims:
+        if not is_cut(cache["c_kv"].shape, LATENT_AXES, 1):
             def core(*a):
                 o_lat, _ = attend(*a[:-1])
                 return torch.einsum("bshr,rhk->bshk", o_lat.to(dtype), a[-1])
 
             out = run_local(
                 core, args + (p["wv_b"],),
-                (qs, (b,), (b,), (b, s_), None, None, (None, h), (None, h)),
-                (qs,))
+                (qaxes, ("batch",), ("batch",), ("batch", "seq"), None, None,
+                 (None, "heads"), (None, "heads")), (qaxes,))
         else:
-            t = scope_spec(cache["c_kv"].shape, LATENT_AXES)[1]
-            # the heads stay split only over mesh axes the time dim is not
-            hq = None if _names(h) & _names(t) else h
+            # the time dim's layout is resolved first (``like``): the heads
+            # stay split only over mesh axes the time dim is not
+            like = (cache["c_kv"].shape, LATENT_AXES)
 
             def part(*a):
                 o_lat, s = attend(*a)
                 return o_lat[None], torch.logsumexp(s, dim=-1)[None]
 
             parts, lse = run_local(
-                part, args, ((b, None, hq), (b,), (b,), (b, None), None, None,
-                             (None, hq)), ((t, b, None, hq), (t, b, hq)))
+                part, args, (heads, ("batch",), ("batch",), ("batch", None),
+                             None, None, (None, "heads")),
+                (("seq_kv",) + heads, ("seq_kv", "batch", "heads")),
+                like=like)
             o_lat = run_local(lambda o, l: merge_chunks(o, l, "bhs,bshr"),
-                              (parts, lse), ((None, b, None, hq),
-                                             (None, b, hq)), ((b, None, hq),))
+                              (parts, lse), ((None,) + heads,
+                                             (None, "batch", "heads")),
+                              (heads,), like=like)
             out = run_local(
                 lambda o, w: torch.einsum("bshr,rhk->bshk", o.to(dtype), w),
-                (o_lat, p["wv_b"]), ((b, None, hq), (None, hq)),
-                ((b, None, hq),))
+                (o_lat, p["wv_b"]), (heads, (None, "heads")), (heads,),
+                like=like)
         new_cache = cache
 
     return shard(_proj(out.to(x.dtype), p["wo"], 2), "batch", "seq",
                  "embed"), new_cache
-
-
-def _names(entry) -> set:
-    """The mesh axes of one spec entry."""
-    return set(entry if isinstance(entry, tuple) else (entry,)) - {None}
 
 
 #: the logical axes of a latent cache leaf (B, T, r)

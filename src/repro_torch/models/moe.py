@@ -33,8 +33,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import (local_range, per_batch, replicate, reshape,
-                             run_local, scope_spec, shard)
+from ..dist.sharding import (per_batch, rank_slice, replicate, reshape,
+                             run_local, shard)
 from .config import ModelConfig
 from .layers import _proj, apply_mlp, mlp_defs
 from .params import ParamDef
@@ -133,16 +133,17 @@ def _dispatch(cfg: ModelConfig, p, x, topv, topi, fill):
     the slots (flat_e, pos, rows) of :func:`_positions`.  The slots are
     computed once: the combine runs on the same batch rows and chunk."""
     C = capacity(cfg, x.shape[1])
-    dims, lo, hi = local_range((C,), ("experts",), 0)
-    entry = scope_spec((C,), ("experts",))[0]
-    b = scope_spec(x.shape, ("batch",))[0]
+    # the capacity is chunked over the mesh axes that hold the experts
+    like = ((C,), ("experts",))
+    lo, hi = rank_slice(*like, 0)
     slots = []
 
     def build(x, topi):
         slots.extend(_positions(cfg, topi, C, lo, hi))
         return fill(x, slots, hi - lo)
 
-    buf = run_local(build, (x, topi), ((b,), (b,)), ((b, None, entry),))
+    buf = run_local(build, (x, topi), (("batch",), ("batch",)),
+                    (("batch", None, "experts"),), like=like)
     buf = shard(buf, "batch", "experts", "expert_cap", "embed")
     out_buf = _expert_ffn(p, buf)
     out_buf = shard(out_buf, "batch", "experts", "expert_cap", "embed")
@@ -159,8 +160,8 @@ def _dispatch(cfg: ModelConfig, p, x, topv, topi, fill):
         return torch.einsum("bskd,bsk->bsd", gathered, topv.to(x.dtype))
 
     out = run_local(combine, (out_buf, topv),
-                    ((b, None, entry if dims else None), (b,)), ((b,),),
-                    partial=dims)
+                    (("batch", None, "experts"), ("batch",)), (("batch",),),
+                    partial=("experts",), like=like)
     return shard(out, "batch", "seq", "embed")              # all-reduce
 
 

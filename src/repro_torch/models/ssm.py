@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import mean_over, run_local, scope_spec, shard
+from ..dist.sharding import mean_over, run_local, shard
 from .config import ModelConfig
 from .layers import _proj
 from .params import ParamDef
@@ -161,9 +161,11 @@ def apply_mamba(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
     # the convolutions and the scan run on each rank's batch rows and
     # heads (run_local); the sequence is never split
     xin = shard(xin, "batch", "seq", "ssm_heads", "ssm_pdim")
-    b, _, h = scope_spec(xin.shape, ("batch", None, "ssm_heads"))[:3]
+    xaxes = ("batch", None, "ssm_heads")
     convs = (p["conv_x"], p["conv_B"], p["conv_C"])
-    conv_specs = ((None, h), (), ())
+    conv_axes = ((None, "ssm_heads"), (), ())
+    ins = (xaxes, ("batch",), ("batch",), xaxes, ("ssm_heads",),
+           ("ssm_heads",)) + conv_axes
 
     if state is None:
         def mix(xin, Bm, Cm, dt, A, D, wx, wB, wC):
@@ -173,9 +175,7 @@ def apply_mamba(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
             return ssd_chunked(xin.float(), Bm.float(), Cm.float(), dt, A, D,
                                cfg.ssm_chunk)[0]
 
-        y = run_local(mix, (xin, Bm, Cm, dt, A, D) + convs,
-                      ((b, None, h), (b,), (b,), (b, None, h), (h,), (h,))
-                      + conv_specs, ((b, None, h),))
+        y = run_local(mix, (xin, Bm, Cm, dt, A, D) + convs, ins, (xaxes,))
         new_state = None
     else:
         # decode: roll conv windows, single-step recurrence
@@ -200,15 +200,14 @@ def apply_mamba(cfg: ModelConfig, p: Dict[str, Any], x: torch.Tensor,
                 + D[:, None] * xt.float()
             return yt[:, None], cx, cB, cC, hn           # y: (B,1,H,P)
 
-        sspec = {"conv_x": (b, None, h), "conv_B": (b,), "conv_C": (b,),
-                 "h": (b, h)}
+        saxes = {"conv_x": xaxes, "conv_B": ("batch",),
+                 "conv_C": ("batch",), "h": ("batch", "ssm_heads")}
         names = ("conv_x", "conv_B", "conv_C", "h")
         y, *new = run_local(
             step, (xin, Bm, Cm, dt, A, D) + convs
             + tuple(state[k] for k in names),
-            ((b, None, h), (b,), (b,), (b, None, h), (h,), (h,))
-            + conv_specs + tuple(sspec[k] for k in names),
-            ((b, None, h),) + tuple(sspec[k] for k in names))
+            ins + tuple(saxes[k] for k in names),
+            (xaxes,) + tuple(saxes[k] for k in names))
         new_state = dict(zip(names, new))
 
     y = _gated_norm(y, z, p["norm"], cfg.norm_eps).to(x.dtype)

@@ -232,3 +232,43 @@ def test_distribution_entry_points_default_to_the_card():
             with dryrun.fake_world(2):
                 pass
     assert not torch.distributed.is_initialized()
+
+
+#: what lays a model out over a mesh, and so stays in ``dist/sharding.py``:
+#: the spec-level calls and the mesh axes' own names
+LAYOUT_CALLS = ("scope_spec", "local_range", "spec_for", "chunk_of",
+                "placements")
+MESH_AXES = ("data", "model", "pod")
+
+
+def _model_files():
+    models = os.path.join(PORT, "models")
+    return sorted(os.path.join(models, f) for f in os.listdir(models)
+                  if f.endswith(".py"))
+
+
+@pytest.mark.parametrize("path", _model_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_models_name_logical_axes_only(path):
+    """The models tag dims with logical axes and call ``shard`` and the
+    layout helpers of ``dist/sharding.py`` (``run_local`` over logical
+    axes, ``rank_slice``, ``is_split``, ``relayout``, ``project_heads``):
+    no call to a spec-level function, no import of ``Spec``, no string
+    equal to a mesh axis's name."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call):
+            name = getattr(node.func, "attr", getattr(node.func, "id", ""))
+            if name in LAYOUT_CALLS:
+                bad.append(f"call {name} (line {node.lineno})")
+        elif isinstance(node, ast.ImportFrom):
+            bad += [f"import {a.name} (line {node.lineno})"
+                    for a in node.names
+                    if a.name in LAYOUT_CALLS + ("Spec",)]
+        elif isinstance(node, ast.Name) and node.id == "Spec":
+            bad.append(f"name Spec (line {node.lineno})")
+        elif isinstance(node, ast.Constant) and node.value in MESH_AXES:
+            bad.append(f"string {node.value!r} (line {node.lineno})")
+    assert not bad, bad

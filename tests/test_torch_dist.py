@@ -227,14 +227,18 @@ def load(arch):
              for k, v in flat.items() if k.startswith("batch:")}
     return {k: v for k, v in flat.items() if ":" not in k}, batch
 
-def step_parity(arch):
+def step_parity(arch, mesh=mesh, run=None):
+    """One train step on ``mesh`` against the meshless step, both under
+    ``run`` (a dict of RunConfig fields; the defaults when None)."""
     from repro_torch.launch.dryrun import default_rules_override
+    from repro_torch.models.model import RunConfig
     rules = dict(sharding.DEFAULT_RULES, **default_rules_override(arch))
+    run = RunConfig(**(run or {}))
     cfg = cfg_of(arch)
     flat, batch = load(arch)
     ocfg = adamw.OptimConfig(eps=1e-3)
     plain = params_from_numpy(flat, "cpu")
-    p, o, m = make_train_step(cfg, opt_cfg=ocfg)(
+    p, o, m = make_train_step(cfg, run, opt_cfg=ocfg)(
         plain, adamw.init(ocfg, plain), batch)
     p_sh = partition.model_shardings(cfg, mesh, rules)
     params = params_from_numpy(flat, "cpu", shardings=p_sh)
@@ -243,7 +247,7 @@ def step_parity(arch):
     shape = ShapeConfig("t", job["S"], job["B"], "train")
     layouts = partition.batch_shardings(cfg, shape, mesh, rules)
     dbatch = partition.distribute(batch, {k: layouts[k] for k in batch})
-    step = make_train_step(cfg, opt_cfg=ocfg, grad_shardings=p_sh)
+    step = make_train_step(cfg, run, opt_cfg=ocfg, grad_shardings=p_sh)
     with sharding.use_sharding(mesh, rules):
         dp, do, dm = step(params, opt, dbatch)
     err = max(float((a - b).abs().max()) for a, b in zip(
@@ -332,6 +336,10 @@ def time_ways(name, t):
 
 for arch in job.get("steps", []):
     out[arch] = step_parity(arch)
+for name, arch, shape, run in job.get("variants", []):
+    out[name] = step_parity(
+        arch, DeviceMesh("cpu", torch.arange(world).reshape(shape),
+                         mesh_dim_names=("data", "model")), run)
 for arch in job.get("decode", []):
     out["decode:" + arch] = {str(b): decode_parity(arch, b) for b in (2, 3)}
 for arch in job.get("decode_by_heads", []):
@@ -469,16 +477,37 @@ def gloo_dir(tmp_path_factory):
     return tmp_path_factory.mktemp("gloo")
 
 
+#: sharded steps on the 8 ranks of ``gloo_4x2`` on meshes of their own,
+#: under run configs of their own: qwen2.5's sequence-parallel attention
+#: recomputed (``remat="full"``: each saved layer input a sequence shard),
+#: and granite's expanded attention on 4 "model" ranks, which its 2 KV
+#: heads do not divide (``sharding.project_heads``), without and with
+#: recomputation
+VARIANTS = {
+    "qwen2.5-32b-4x2-remat": ("qwen2.5-32b", (4, 2), {"remat": "full"}),
+    "granite-3-2b-2x4-expanded": ("granite-3-2b", (2, 4),
+                                  {"attn_mode": "expanded"}),
+    "granite-3-2b-2x4-expanded-remat": ("granite-3-2b", (2, 4),
+                                        {"attn_mode": "expanded",
+                                         "remat": "full"}),
+}
+
+
 @pytest.fixture(scope="module")
 def gloo_4x2(gloo_dir):
     """8 ranks on (4, 2): granite's sharded step, the trainer with and
-    without a mesh, and the trainer's step-2 checkpoint.  The JAX loss is
-    computed while the ranks run."""
+    without a mesh, the trainer's step-2 checkpoint, and the VARIANTS.
+    The JAX loss is computed while the ranks run."""
     _write_inputs("granite-3-2b", gloo_dir)
+    _write_inputs("qwen2.5-32b", gloo_dir)
     run = _start({"name": "a", "mesh": [4, 2], "steps": ["granite-3-2b"],
-                  "trainer": "granite-3-2b"}, gloo_dir)
-    jax_loss = _jax_loss("granite-3-2b", gloo_dir)
-    return {"jax": {"granite-3-2b": jax_loss}, **_finish(run)}
+                  "trainer": "granite-3-2b",
+                  "variants": [[k, a, list(m), r]
+                               for k, (a, m, r) in VARIANTS.items()]},
+                 gloo_dir)
+    jax_loss = {arch: _jax_loss(arch, gloo_dir)
+                for arch in ("granite-3-2b", "qwen2.5-32b")}
+    return {"jax": jax_loss, **_finish(run)}
 
 
 @pytest.fixture(scope="module")
@@ -543,6 +572,23 @@ def test_sharded_train_step_matches_the_meshless_step_and_jax(request,
     assert r["leaf_err"] < TOL * max(1.0, r["leaf_scale"]), r
     assert r["moment_rel_err"] < TOL, r               # the gradients
     # the update kept the parameters' layouts (grad_shardings given)
+    assert any("Shard" in p for p in r["placements"]), r["placements"]
+
+
+@pytest.mark.parametrize("name", list(VARIANTS))
+def test_sharded_step_under_its_run_config_matches_the_meshless_step(
+        gloo_4x2, name):
+    """The loss, every updated leaf and every first moment (the gradients)
+    of the sharded step against the meshless step under the same run
+    config, and the loss against the JAX package's on the same inputs
+    (neither recomputation nor the attention mode changes it), within the
+    file's tolerance."""
+    r = gloo_4x2[name]
+    jax_loss = gloo_4x2["jax"][VARIANTS[name][0]]
+    assert _rel(r["loss_mesh"], r["loss_plain"]) < TOL, r
+    assert _rel(r["loss_mesh"], jax_loss) < TOL, (r, jax_loss)
+    assert r["leaf_err"] < TOL * max(1.0, r["leaf_scale"]), r
+    assert r["moment_rel_err"] < TOL, r
     assert any("Shard" in p for p in r["placements"]), r["placements"]
 
 

@@ -473,6 +473,30 @@ def test_peak_live_adds_up_to_the_peak():
         assert nb >= math.prod(shape) * dtype.itemsize
 
 
+def test_each_layer_s_weight_gradients_are_reduced_as_the_backward_goes():
+    """qwen2.5 smoke with 8 layers at 2x4 under ``remat="full"``: a
+    layer's whole (d, d) weight-gradient product is reduced to its shard
+    as the backward leaves the layer (``model._layers`` lays each layer's
+    views out as the layer runs), so the memory peak holds at most one
+    such product, not one for every layer (the JAX compile reduces each
+    layer's gradient inside its backward loop)."""
+    from repro_torch.dist import sharding
+    cfg = dataclasses.replace(get_arch("qwen2.5-32b").smoke, num_layers=8)
+    run = dryrun.measurement_run(dryrun.default_run_config("qwen2.5-32b",
+                                                           "train_4k"))
+    with dryrun.fake_world(8):
+        mesh = dryrun._mesh((2, 4), "cpu")
+        trace = dryrun._traced_step(
+            cfg, ShapeConfig("train_4k", 64, 32, "train"), run, mesh,
+            dict(sharding.DEFAULT_RULES,
+                 **dryrun.default_rules_override("qwen2.5-32b")),
+            dryrun.default_opt_config("qwen2.5-32b"), detail=True)
+    d = cfg.d_model
+    held = [r for r in trace.peak_live if r[0] == "aten.mm"
+            and r[2] == (d, d)]
+    assert len(held) <= 1, held
+
+
 def test_roofline_divides_by_the_h100_profile():
     costs = {"flops": 989e12, "bytes": 3.35e12, "coll_weighted": 450e9}
     r = dryrun.roofline(costs, H100_SXM)

@@ -150,6 +150,47 @@ print(json.dumps(out))
 '''
 
 
+#: the layout repairs' smoke cases, each against the JAX compile of the
+#: same step at ``run_m`` on the 2x4 Auto-axes mesh: qwen2.5's
+#: sequence-parallel step under ``remat="full"``, whose saved layer
+#: inputs are sequence shards; and granite's expanded attention with 16
+#: query heads of width 48 over its 2 KV heads, which do not divide the 4
+#: "model" ranks (48 is the width of no other product of the step, so
+#: the k/v products can be told apart by their shapes)
+KV_CFG = {"num_heads": 16, "head_dim": 48}
+KV_HD = 48
+
+_JAX_LAYOUTS = (f"SEQ, BATCH, KV_CFG = {SEQ}, {BATCH}, {KV_CFG}\n") + r'''
+import dataclasses, json, os, re, sys
+sys.path.insert(0, os.path.join(sys.argv[1], "tools"))
+import dryrun_parity as t
+peak = t.jax_peak("qwen2.5-32b", "train_4k", 8, 10 ** 6, smoke=True, seq=SEQ,
+                  batch=BATCH, run_m=True, mesh_shape=(2, 4))
+import jax
+from jax.sharding import AxisType
+from repro.configs import get_arch
+from repro.dist import sharding
+from repro.launch import dryrun as d
+from repro.models.config import ShapeConfig
+cfg = dataclasses.replace(get_arch("granite-3-2b").smoke, **KV_CFG)
+run = d.default_run_config("granite-3-2b", "train_4k")
+run_m = dataclasses.replace(run, scan_blocks=False, ce_chunk=0,
+                            attn_chunk=0, microbatch=1)
+mesh = jax.make_mesh((2, 4), ("data", "model"),
+                     axis_types=(AxisType.Auto,) * 2,
+                     devices=jax.devices()[:8])
+compiled = d._build_lowered(cfg, ShapeConfig("train_4k", SEQ, BATCH, "train"),
+                            run_m, mesh, dict(sharding.DEFAULT_RULES),
+                            d.default_opt_config("granite-3-2b")).compile()
+text = compiled.as_text()
+moves = [[int(x) for x in m.group(1).split(",") if x] for m in re.finditer(
+    r"= \w+\[([\d,]*)\]\S* (?:all-gather|collective-permute|all-to-all)\(",
+    text)]
+print(json.dumps({"peak": peak, "kv_dots": t.dot_flops(text, "dhk->bshk"),
+                  "kv_moves": moves}))
+'''
+
+
 def _layers(kind):
     """Decode cells run at one layer (the module docstring says why)."""
     return 1 if kind == "decode" else None
@@ -193,8 +234,12 @@ def both():
         + (["check"] if i == 0 else []),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
         for i, g in enumerate(_jax_groups())]
+    procs.append(subprocess.Popen(
+        [sys.executable, "-c", _JAX_LAYOUTS, REPO], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, env=env))
     try:
         port = {_key(c, m): _port(c, m) for c in CELLS for m in MESHES}
+        port["layouts"] = _port_layouts()
     finally:
         outs = [p.communicate(timeout=600) for p in procs]
     jax_out = {}
@@ -202,6 +247,47 @@ def both():
         assert p.returncode == 0, err[-3000:]
         jax_out.update(json.loads(out.strip().splitlines()[-1]))
     return {"jax": jax_out, "port": port}
+
+
+def _port_layouts():
+    """The port's side of the layout repairs' cases: qwen2.5's peak
+    buffers (``tools/dryrun_parity.py::port_peak``), and granite's
+    products (M, K, N) and collectives, each local to rank 0."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    sys.path.insert(0, os.path.join(REPO, "tools"))
+    import dryrun_parity
+    from repro_torch.dist import sharding
+
+    shape = ShapeConfig("train_4k", SEQ, BATCH, "train")
+    run = dryrun.measurement_run(dryrun.default_run_config("qwen2.5-32b",
+                                                           "train_4k"))
+    peak = dryrun_parity.port_peak(
+        "qwen2.5-32b", "train_4k", 10 ** 6, cfg=get_arch("qwen2.5-32b").smoke,
+        shape=shape, mesh_shape=(2, 4), run=run, device_type="cpu")
+
+    products = []
+
+    class Products(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            if func is torch.ops.aten.mm.default:
+                products.append((args[0].shape[0], args[0].shape[1],
+                                 args[1].shape[1]))
+            return func(*args, **(kwargs or {}))
+
+    cfg = dataclasses.replace(get_arch("granite-3-2b").smoke, **KV_CFG)
+    run = dryrun.measurement_run(dryrun.default_run_config("granite-3-2b",
+                                                           "train_4k"))
+    with dryrun._cell_mesh(False, (2, 4), "cpu") as mesh, Products():
+        trace = dryrun._traced_step(cfg, shape, run, mesh,
+                                    dict(sharding.DEFAULT_RULES),
+                                    dryrun.default_opt_config("granite-3-2b"))
+    moves = [list(r.shape) for r in trace.records
+             if r.op.rsplit(".", 1)[-1] in ("all_gather_into_tensor",
+                                            "all_to_all_single")]
+    return {"peak": peak, "products": products, "moves": moves}
 
 
 def _jax_flops(rec):
@@ -330,3 +416,61 @@ def test_one_chip_moves_no_collective_bytes_on_either_side(both, cell):
     assert both["port"][k]["collective_bytes_per_chip"] == 0
     assert both["jax"][k]["costs"]["coll_total"] == 0
     assert both["port"][k]["mesh"] == "1x1"
+
+
+def test_a_sequence_parallel_step_saves_sequence_shards_as_the_reference(
+        both):
+    """qwen2.5 smoke under ``remat="full"`` at 2x4 ("seq_attn" on
+    "model"): at the memory peak both sides hold each saved layer input
+    (the residual stream's forward adds) as its rank's quarter of the
+    sequence, (B / 2, S / 4, d), and neither holds one whole; the port's
+    gather-like bytes stay at most the reference's."""
+    cfg = get_arch("qwen2.5-32b").smoke
+    shard, whole = ([BATCH // 2, s, cfg.d_model] for s in (SEQ // 4, SEQ))
+
+    def jax_adds(shp):
+        return sum(1 for b in both["jax"]["peak"]["buffers"]
+                   if b["op"].endswith("jvp()/add")
+                   and b["shape"].startswith(
+                       "f32[" + ",".join(map(str, shp)) + "]"))
+
+    def port_adds(shp):
+        return sum(b["count"] for b in both["port"]["layouts"]["peak"][
+            "buffers"] if b["op"] == "aten.add" and b["shape"] == shp
+            and b["dtype"] == "torch.bfloat16")
+
+    assert jax_adds(shard) >= 1 and jax_adds(whole) == 0
+    assert port_adds(shard) >= jax_adds(shard), both["port"]["layouts"]
+    assert port_adds(whole) == 0
+    k = _key("qwen2.5-train", (2, 4))
+    port = sum(both["port"][k]["collective_by_op"][op] for op in GATHER_OPS)
+    ref = sum(both["jax"][k]["costs"]["coll_by_op"][op] for op in GATHER_OPS)
+    assert port <= ref, (port, ref)
+
+
+def _kv(dims, k):
+    """Whether a product (its output dims, its contraction) is a k or v
+    projection's, forward or backward: only those have the width of one
+    or both KV heads (a rank's 4 query heads are 192 wide)."""
+    return bool({KV_HD, 2 * KV_HD} & {*dims, k})
+
+
+def test_k_v_products_split_over_query_heads_as_the_reference_s(both):
+    """granite smoke with 16 query heads over 2 KV heads at 2x4: the k and
+    v products' FLOPs a chip (forward, recomputed, and both backward
+    products) within 5 % of the JAX compile's, where the port used to
+    compute all KV heads on every "model" rank; each rank gathers only
+    its own KV head's columns of ``wk`` and ``wv`` (d, 1, hd), as the
+    reference does, never both heads, and no k or v activation."""
+    port = sum(2 * m * k * n for m, k, n in both["port"]["layouts"][
+        "products"] if _kv((m, n), k))
+    ref = sum(f for dims, k, f in both["jax"]["kv_dots"] if _kv(dims, k))
+    assert ref > 0 and 0.95 <= port / ref <= 1.05, (port, ref)
+    d = get_arch("granite-3-2b").smoke.d_model
+    head = [d, 1, KV_HD]
+    moved = [m for m in both["port"]["layouts"]["moves"] if KV_HD in m]
+    ref_moved = [m for m in both["jax"]["kv_moves"] if KV_HD in m]
+    assert head in ref_moved and head in moved, (moved, ref_moved)
+    kv_heads = 2
+    assert all(m[-2] != kv_heads and m[-1] != kv_heads * KV_HD
+               for m in moved), moved

@@ -6,6 +6,9 @@ size, one table.
         --tree parent=build/parent/src --out OUT/port.json
     python3 tools/dryrun_parity.py table --jax OUT/jax.json --port OUT/port.json
 
+``--cell ARCH:SHAPE`` (repeatable) replaces the seven cells of ``jax`` and
+``port``; ``table`` lists the cells of the JAX record.
+
 ``jax`` needs the JAX package (``src/repro``): each cell compiles in a
 process of its own on 256 virtual CPU devices (``XLA_FLAGS`` is set before
 JAX starts) over a ("data", "model") 16x16 mesh built with Auto axes
@@ -146,9 +149,15 @@ def jax_cell(arch: str, shape_name: str, devices: int) -> dict:
             "compile_s": time.perf_counter() - t0}
 
 
-def jax_peak(arch: str, shape_name: str, devices: int, top: int) -> dict:
+def jax_peak(arch: str, shape_name: str, devices: int, top: int,
+             smoke: bool = False, seq: int = None, batch: int = None,
+             run_m: bool = False, mesh_shape=None) -> dict:
     """The JAX compile's live buffers at its memory peak (call in a fresh
-    process: it sets ``XLA_FLAGS`` before JAX starts)."""
+    process: it sets ``XLA_FLAGS`` before JAX starts), on a square
+    ("data", "model") mesh of ``devices`` or ``mesh_shape``.  ``smoke``:
+    the arch's smoke config at ``seq`` x ``batch``; ``run_m``: at
+    ``measure_costs``' run config, as the cost records are."""
+    import dataclasses
     import glob
     import tempfile
     os.environ["JAX_PLATFORMS"] = "cpu"
@@ -160,15 +169,25 @@ def jax_peak(arch: str, shape_name: str, devices: int, top: int) -> dict:
     from jax.sharding import AxisType
     from repro.configs import get_arch
     from repro.dist import sharding
-    from repro.models.config import SHAPES
+    from repro.models.config import SHAPES, ShapeConfig
 
     side = int(round(devices ** 0.5))
-    mesh = jax.make_mesh((side, side), ("data", "model"),
+    mesh_shape = tuple(mesh_shape or (side, side))
+    mesh = jax.make_mesh(mesh_shape, ("data", "model"),
                          axis_types=(AxisType.Auto,) * 2,
-                         devices=jax.devices()[:side * side])
-    cfg, shape = get_arch(arch).full, SHAPES[shape_name]
+                         devices=jax.devices()[:mesh_shape[0]
+                                               * mesh_shape[1]])
+    if smoke:
+        cfg = get_arch(arch).smoke
+        shape = ShapeConfig(shape_name, seq, batch, SHAPES[shape_name].kind)
+    else:
+        cfg, shape = get_arch(arch).full, SHAPES[shape_name]
+    run = d.default_run_config(arch, shape_name)
+    if run_m:
+        run = dataclasses.replace(run, scan_blocks=False, ce_chunk=0,
+                                  attn_chunk=0, microbatch=1)
     mem = d._mem_analysis(d._build_lowered(
-        cfg, shape, d.default_run_config(arch, shape_name), mesh,
+        cfg, shape, run, mesh,
         dict(sharding.DEFAULT_RULES, **d.default_rules_override(arch)),
         d.default_opt_config(arch)).compile())
     stem = glob.glob(os.path.join(
@@ -191,22 +210,55 @@ def jax_peak(arch: str, shape_name: str, devices: int, top: int) -> dict:
             "buffers": buffers[:top]}
 
 
-def port_peak(arch: str, shape_name: str, top: int) -> dict:
-    """The port's trace on the card's ``cuda`` mesh: what is live at its
-    peak, by allocating operation, dtype and shape."""
+def dot_flops(text: str, op_name: str) -> list:
+    """(output shape, contraction length, FLOPs) of every ``dot`` in a
+    compiled module's HLO ``text`` whose JAX operation name contains
+    ``op_name`` (an einsum's subscripts: its forward, recomputed and
+    transposed products alike)."""
+    shapes = {m.group(1): [int(x) for x in m.group(2).split(",") if x]
+              for m in re.finditer(r"%([\w.\-]+) = \w+\[([\d,]*)\]", text)}
+    out = []
+    for line in text.splitlines():
+        m = re.match(r"\s*(?:ROOT )?%[\w.\-]+ = \w+\[([\d,]*)\]\S* "
+                     r"dot\(%([\w.\-]+), %[\w.\-]+\), "
+                     r"lhs_contracting_dims=\{([\d,]*)\}", line)
+        name = re.search(r'op_name="([^"]+)"', line)
+        if not m or not name or op_name not in name.group(1):
+            continue
+        res = [int(x) for x in m.group(1).split(",") if x]
+        lhs = shapes[m.group(2)]
+        k = 1
+        for c in m.group(3).split(","):
+            if c:
+                k *= lhs[int(c)]
+        n = 1
+        for x in res:
+            n *= x
+        out.append((res, k, 2 * n * k))
+    return out
+
+
+def port_peak(arch: str, shape_name: str, top: int, cfg=None, shape=None,
+              mesh_shape=None, run=None, device_type: str = "cuda") -> dict:
+    """The port's trace on a fake-world mesh (the card's ``cuda`` one by
+    default): what is live at its peak, by allocating operation, dtype
+    and shape.  ``cfg``, ``shape``, ``mesh_shape`` and ``run`` replace the
+    arch's full config, the cell's shape, the 16x16 mesh and the cell's
+    run config."""
     sys.path.insert(0, os.path.join(REPO, "src"))
     from repro_torch.configs import get_arch
     from repro_torch.dist import sharding
     from repro_torch.launch import dryrun
     from repro_torch.models.config import SHAPES
 
-    cfg, shape = get_arch(arch).full, SHAPES[shape_name]
+    cfg = cfg or get_arch(arch).full
+    shape = shape or SHAPES[shape_name]
     rules = dict(sharding.DEFAULT_RULES,
                  **dryrun.default_rules_override(arch))
-    with dryrun._cell_mesh(False, None, "cuda") as mesh:
+    with dryrun._cell_mesh(False, mesh_shape, device_type) as mesh:
         trace = dryrun._traced_step(
-            cfg, shape, dryrun.default_run_config(arch, shape_name), mesh,
-            rules, dryrun.default_opt_config(arch), detail=True)
+            cfg, shape, run or dryrun.default_run_config(arch, shape_name),
+            mesh, rules, dryrun.default_opt_config(arch), detail=True)
     groups = {}
     for op, dtype, shp, nb in trace.peak_live:
         g = groups.setdefault((op, str(dtype), shp), [0, 0])
@@ -240,9 +292,14 @@ def run_peak(args):
         print(json.dumps(rec), flush=True)
 
 
+def _cells(args):
+    """The ``--cell ARCH:SHAPE`` cells given, else :data:`CELLS`."""
+    return [tuple(c.split(":")) for c in args.cell] if args.cell else CELLS
+
+
 def run_jax(args):
     out = {}
-    for arch, shape in CELLS:
+    for arch, shape in _cells(args):
         code = (f"import json, sys; sys.path.insert(0, {REPO + '/tools'!r}); "
                 f"import dryrun_parity as t; print(json.dumps(t.jax_cell("
                 f"{arch!r}, {shape!r}, {args.devices})))")
@@ -262,7 +319,8 @@ def run_jax(args):
 
 def run_port(args):
     trees = dict(t.split("=", 1) for t in args.tree)
-    jobs = [(name, arch, shape) for name in trees for arch, shape in CELLS]
+    jobs = [(name, arch, shape) for name in trees
+            for arch, shape in _cells(args)]
 
     def one(job):
         name, arch, shape = job
@@ -306,12 +364,13 @@ def _gb(x):
 
 def table(jax_recs, port_recs) -> str:
     """Markdown: per cell, JAX's figures and each tree's, with ratios."""
+    cells = [tuple(k.split("|")) for k in jax_recs]
     lines = ["| cell | side | TFLOP/chip | ratio | net ratio | GB/chip | "
              "ratio | collectives GB (AR/AG/RS/A2A/CP) | gather-like ratio "
              "| GiB/device | ratio |",
              "| --- | --- | --- | --- | --- | --- | --- | --- | --- | --- "
              "| --- |"]
-    for arch, shape in CELLS:
+    for arch, shape in cells:
         key = f"{arch}|{shape}"
         j = jax_recs.get(key, {})
         if "flops_per_chip" not in j:
@@ -354,7 +413,11 @@ def main(argv=None):
     j = sub.add_parser("jax")
     j.add_argument("--out", required=True)
     j.add_argument("--devices", type=int, default=256)
+    j.add_argument("--cell", action="append",
+                   help="ARCH:SHAPE (repeatable; default: the seven cells)")
     p = sub.add_parser("port")
+    p.add_argument("--cell", action="append",
+                   help="ARCH:SHAPE (repeatable; default: the seven cells)")
     p.add_argument("--tree", action="append", required=True,
                    help="name=DIR of a tree's src")
     p.add_argument("--out", required=True)
