@@ -3,6 +3,9 @@
     python3 chip_smoke.py               # on the machine with the card
     python3 chip_smoke.py --rehearse    # the same control flow on the CPU,
                                         # plain versions only, tiny shapes
+    python3 chip_smoke.py --times-bf16 GEMM_CONFIG FLASH_CONFIG
+                                        # [times-bf16] alone at these
+                                        # float32 winners (JSON)
 
 It drives the port's three main paths — tune -> record -> lookup -> run —
 through the entry points a user calls, and holds every CUDA kernel on
@@ -13,7 +16,9 @@ each printing its own lines:
   2. build: every GEMM configuration of phase 3, all nvcc runs at once;
      the built threads and shared bytes must equal matmul.py's models
   3. GEMM kernel vs plain version vs oracle, for an H100 twin of every
-     config the JAX package's GEMM tests sweep, at their shapes and 2048^3
+     config the JAX package's GEMM tests sweep, and bfloat16 builds (A
+     k-major, a bfloat16 accumulator, 8 sub-dots of 1, 16 x 16 tiles), at
+     their shapes and 2048^3
   4. the GEMM main path at M = N = K = 2048 float32: tune_kernel with the
      wall-clock evaluator, lookup (provenance "exact"), matmul(config=None)
   5. GEMM times at 2048^3: tuned kernel, heuristic config, plain version,
@@ -33,11 +38,20 @@ each printing its own lines:
      flash_plain and the oracle (2e-5 and 3e-2 as in the JAX tests; at 4096
      a float32 bound derived from summation order, flash_bound)
   9. conv main path: tune_kernel(CONV2D) at 4096^2 3x3 (annealing, the
-     extended space, budget 48), lookup "exact", conv2d(config=None); then
+     extended space, budget 32), lookup "exact", conv2d(config=None); then
      conv2d(config=None) at 8192x4096 with 7x7 and 11x11 (heuristic)
  10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
      causal (budget 24), lookup "exact", flash_attention(config=None) on
      (2, 8, 4096, 128) float32: one launch for all 16 heads; then
+     times-bf16: every kernel's bfloat16 build beside its library call in
+     bfloat16 and its bound at the card's bfloat16 rate (the GEMM at 2048^3
+     and 4096^3 with the float32 search's winner and the heuristic config
+     beside torch.matmul, flash on (2, 8, 4096, 128) causal with the flash
+     search's winner beside SDPA; conv-bf16 times the conv); main-bf16: the
+     GEMM main path in bfloat16 on the tensor cores, tune_kernel at 2048^3
+     (compact space, budget 24, every candidate held to the oracle at
+     3e-2), lookup "exact", matmul(config=None) on bfloat16 tensors, the
+     winner timed beside its plain version and torch.matmul; then
      wallclock-gap: each of the three search winners' sample in its search
      against its back-to-back time (limit WALLCLOCK_GAP);
      analyze: the static analyzer's lint over the registry at the card's
@@ -94,7 +108,9 @@ each printing its own lines:
      step, the bound, an async full-depth checkpoint verified); remat,
      ce_chunk and microbatch variants on the first batch with their peak
      memory; a crash at step 5 restored from step 4 at 2 layers under
-     deterministic algorithms, equal to an uninterrupted run; the
+     deterministic algorithms (in a spawned process: deterministic cuBLAS
+     caps its workspace, and with it torch.matmul's speed), equal to an
+     uninterrupted run; the
      launcher (--full, 4 steps) and mamba2-130m (10 steps); then the
      distribution layer, each part in a spawned process of its own (one
      default process group each): dist (an NCCL world of one rank,
@@ -113,14 +129,16 @@ each printing its own lines:
      train_bound_ms's count, its peak within 25 % of dist's) and
      sharding-tune (tune_cell over granite-3-2b train_4k, greedy,
      budget 4, the winner resolved by lookup with provenance "exact");
-     then build_space: every fourth distinct conv build of the extended space
-     at 3x3 (93 of its 372), 16 nvcc at a time, with ptxas's
+     then build_space: every eighth distinct conv build of the extended
+     space at 3x3 (47 of its 372) and every fourth bfloat16 GEMM build of
+     the compact space (36 of 144), 16 nvcc at a time, with ptxas's
      registers and spills (none may spill; after the searches, so their
-     nvcc time stays their own)
- 11. the CUDA kernels one float32 F.scaled_dot_product_attention call
-     launches (the device activities of one torch.profiler trace, taken
-     right after phase 5; no device time fails): the flash yardstick's
-     route
+     nvcc time stays their own); each GEMM build launched at 256^3
+     against gemm_plain, and one's SASS must hold the tensor cores' HMMA
+ 11. the CUDA kernels one F.scaled_dot_product_attention call launches,
+     in float32 and in bfloat16 (the device activities of one
+     torch.profiler trace each, taken right after phase 5; no device time
+     fails): the flash yardsticks' routes
  12. conv and flash times (CUDA events, the versions taking turns): each
      kernel, its plain version, F.conv2d or F.scaled_dot_product_attention
      as the library yardstick, and the bound (the flash kernel skips the
@@ -136,10 +154,11 @@ Each main path zeroes its kernels' launch counters just before it and
 reads them just after (the dtune workers of the process driver count in
 their own processes and report what they launched, and each of them must
 have launched the GEMM; the islands and online paths run in this one).  The
-searches' budgets (GEMM 32, conv 48, flash 24) are cut from the
-declarations' defaults for the time limit: a search is bound by nvcc,
-about 3.6 s per configuration.  The dtune workers are spawned, so this
-script imports without side effects: its work is under __main__.
+searches' budgets (GEMM 24 in float32 and 24 in bfloat16, conv 32, flash
+24) are cut from the declarations' defaults for the time limit: a search is
+bound by nvcc, about 2.7-3.6 s per configuration.  The dtune workers are
+spawned, so this script imports without side effects: its work is under
+__main__.
 
 The line before the last is the card's name and power limit as nvidia-smi
 gives them; the last is {"ok": true, "device": {...}}.  Any failure raises
@@ -191,7 +210,7 @@ cv_kernel = importlib.import_module("repro_torch.kernels.conv2d.conv2d")
 from repro_torch.kernels.matmul import (GEMM, LAUNCHES, gemm_plain,  # noqa: E402
                                         gemm_reference, heuristic_config,
                                         lookup_config, make_matmul, matmul,
-                                        micro_tile, smem_footprint)
+                                        smem_footprint)
 from repro_torch.data import DataConfig, to_device  # noqa: E402
 from repro_torch.dist.step import make_train_step  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
@@ -246,6 +265,18 @@ REFERENCE_CASES = [
     ("acc_bfloat16", {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 128,
                       "INNER_STEPS": 2, "ACC_DTYPE": "bfloat16"},
      (256, 256, 256), "float32"),
+    # the bfloat16 (tensor-core) build: A k-major, the rounding points,
+    # sub-dots narrower than the mma (8 sub-dots of 1), one-warp blocks
+    ("bf16_trans_a", {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 128,
+                      "TRANS_A": True}, (256, 128, 128), "bfloat16"),
+    ("bf16_acc_bfloat16", {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 128,
+                           "INNER_STEPS": 2, "ACC_DTYPE": "bfloat16"},
+     (256, 256, 256), "bfloat16"),
+    ("bf16_k8_inner8", {"BLOCK_M": 64, "BLOCK_N": 64, "BLOCK_K": 8,
+                        "INNER_STEPS": 8, "ACC_DTYPE": "bfloat16"},
+     (128, 128, 128), "bfloat16"),
+    ("bf16_16x16", {"BLOCK_M": 16, "BLOCK_N": 16, "BLOCK_K": 16},
+     (64, 64, 64), "bfloat16"),
 ]
 
 #: main-path tolerance at K = 2048 (float32 sums): two valid orders of
@@ -280,6 +311,25 @@ def tolerance(cfg, dtype, shape, oracle):
     if shape[2] > 512:
         return MAIN_TOL, MAIN_TOL, "float32 at K=2048"
     return TEST_TOL, TEST_TOL, "JAX GEMM tests"
+
+
+def plain_tolerance(cfg, dtype, plain, atol, rtol, why):
+    """(atol, rtol, bit for bit) for the kernel against its plain version,
+    which rounds where the kernel rounds.  A bfloat16 accumulator over
+    bfloat16 operands (the tensor cores) sums each sub-dot in another order
+    than the plain version's float32 product, so one rounding of the
+    running sum may fall the other way: two ulps of the sums' size, 2 *
+    2^-8 * max|C|, beside BF16_TOL.  A sub-dot one deep is one product,
+    exact in float32, so there the two agree bit for bit.  Any other
+    bfloat16 rounding is held to BF16_TOL, float32 to the oracle's."""
+    if cfg.get("ACC_DTYPE") == "bfloat16" and dtype == "bfloat16":
+        if cfg["BLOCK_K"] // cfg.get("INNER_STEPS", 1) == 1:
+            return 0.0, 0.0, True
+        ulps = 2 * 2.0 ** -8 * plain.float().abs().max().item()
+        return ulps, BF16_TOL, False
+    if "bf16" in why:
+        return BF16_TOL, BF16_TOL, False
+    return atol, rtol, False
 
 
 def inputs(shape, dtype, trans_a, device, seed=0):
@@ -397,7 +447,7 @@ def phase_build(cases, main_shape, device):
               f"kernel objects in {time.perf_counter() - t0:.2f} s")
         # the search prunes by these models: they must be what was built
         for f in todo:
-            want = (micro_tile(f.config)[2],
+            want = (mm_kernel.block_threads(f.config, f.dtype.itemsize),
                     smem_footprint(f.config, f.dtype.itemsize))
             if f.geometry() != want:
                 raise AssertionError(f"GEMM {f.config}: built "
@@ -417,19 +467,23 @@ def phase_sweep(cases, fns, main_shape, device):
             plain = gemm_plain(a, b, fn.config)
             oracle = gemm_reference(a, b, trans_a=trans)
             atol, rtol, why = tolerance(cfg, dtype, s, oracle)
-            # the plain version shares the kernel's rounding points, so it
-            # is held to the tolerance of the result dtype
-            p_atol, p_rtol = ((BF16_TOL, BF16_TOL) if
-                              "bf16" in why else (atol, rtol))
+            p_atol, p_rtol, bitwise = plain_tolerance(fn.config, dtype,
+                                                      plain, atol, rtol, why)
+            equal = bool(torch.equal(out, plain))
             row = {"case": name, "config": cfg, "shape": list(s),
                    "dtype": dtype, "variant": fn.variant,
                    "finite": bool(torch.isfinite(out.float()).all()),
                    "err_plain": max_err(out, plain),
                    "err_oracle": max_err(out, oracle),
-                   "share_plain": tol_share(out, plain, p_atol, p_rtol),
+                   "bitwise_plain": equal,
+                   "bitwise_oracle": bool(torch.equal(out, oracle)),
+                   "share_plain": ((0.0 if equal else float("inf"))
+                                   if bitwise else
+                                   tol_share(out, plain, p_atol, p_rtol)),
                    "share_oracle": tol_share(out, oracle, atol, rtol),
-                   "tol_plain": [p_atol, p_rtol], "tol_oracle": [atol, rtol],
-                   "tol_why": why}
+                   "tol_plain": "bit for bit" if bitwise else [p_atol,
+                                                               p_rtol],
+                   "tol_oracle": [atol, rtol], "tol_why": why}
             rows.append(row)
             print("[sweep] " + json.dumps(row))
             if not (row["finite"] and row["share_plain"] <= 1.0
@@ -531,6 +585,161 @@ def phase_times(main_shape, winner, heur, device):
               "heuristic": heur.config, "kernels": kernels,
               "tuned_share_of_bound": bound_ms / kernels["gemm_scratch"]["ms"]}
     print("[times] " + json.dumps(record))
+    return record
+
+
+def phase_main_bf16(main_shape, device, budget):
+    """The GEMM main path in bfloat16: tune_kernel over the compact space
+    with the wall-clock evaluator (every candidate held against the oracle
+    at BF16_TOL), lookup (provenance "exact"), matmul(config=None) on
+    bfloat16 tensors launching the winner; then the winner timed beside
+    its plain version, torch.matmul in bfloat16 and its bound."""
+    M, N, K = main_shape
+    shape = {"M": M, "N": N, "K": K, "dtype": "bfloat16"}
+    profile = device_profile(device)
+    cache = default_cache()
+    evaluator = WallClockEvaluator(atol=BF16_TOL, rtol=BF16_TOL,
+                                   device=device)
+    zero_counts()
+    t0 = time.perf_counter()
+    outcome = tune_kernel(GEMM, shape, strategy="annealing", budget=budget,
+                          seed=0, evaluator=evaluator, profile=profile,
+                          cache=cache, extended_space=False)
+    tune_s = time.perf_counter() - t0
+    _check_tune(outcome, "bf16 GEMM")
+    best = outcome.result.best
+    res = lookup_resolved(GEMM, shape, profile=profile, cache=cache)
+    if res.provenance != "exact" or res.config != best.config:
+        raise AssertionError(f"bf16 GEMM lookup gave {res}")
+    a, b = inputs(main_shape, "bfloat16", False, device, seed=1)
+    before = LAUNCHES["gemm_scratch"]
+    out = matmul(a, b)                          # config=None: the registry
+    sync(device)
+    op_launches = LAUNCHES["gemm_scratch"] - before
+    launches = read_counts()
+    oracle = gemm_reference(a, b)
+    stats = outcome.engine_stats or {}
+    record = {
+        "winner": best.config, "winner_ms": best.time * 1e3,
+        "evaluations": outcome.result.evaluations,
+        "failures_by_type": outcome.failure_summary.get("by_type", {}),
+        "compile_s": stats.get("compile_total_s"),
+        "compile_calls": stats.get("compile_calls"),
+        "tune_wall_s": tune_s, "lookup": res.provenance,
+        "op_launches": op_launches, "launches": launches,
+        "op_dtype": str(out.dtype), "op_err_oracle": max_err(out, oracle),
+        "op_share_oracle": tol_share(out, oracle, BF16_TOL, BF16_TOL)}
+    winner = make_matmul(M, N, K, best.config, out_dtype=torch.bfloat16)
+    a, b = inputs(main_shape, "bfloat16", False, device, seed=2)
+    runs = time_in_turns({"kernel": lambda: winner(a, b),
+                          "library": lambda: torch.matmul(a, b)}, device)
+    plain = time_in_turns({"plain": lambda: gemm_plain(a, b, best.config)},
+                          device, rounds=3, iters=5)["plain"]
+    bound_ms, bound_by = gemm_bf16_bound(M, N, K)
+    record.update(
+        ms=float(np.median(runs["kernel"])), ms_runs=runs["kernel"],
+        library_ms=float(np.median(runs["library"])),
+        library_ms_runs=runs["library"], plain_ms=float(np.median(plain)),
+        plain_ms_runs=plain, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=max_err(winner(a, b), gemm_plain(a, b, best.config)),
+        ptxas=ptxas_info(winner))
+    record["share_of_bound"] = bound_ms / record["ms"]
+    record["over_library"] = record["ms"] / record["library_ms"]
+    print("[main-bf16] " + json.dumps(
+        {k: v for k, v in record.items() if not k.endswith("_runs")}))
+    record["trials"] = _trials(outcome)
+    if device.type == "cuda":
+        if op_launches != 1:
+            raise AssertionError("matmul() did not launch the bf16 GEMM")
+        _check_launched(launches, ["gemm_scratch"], "[main-bf16]")
+    if out.dtype != torch.bfloat16 or record["op_share_oracle"] > 1.0:
+        raise AssertionError(f"bf16 matmul() disagrees with the oracle: "
+                             f"{record}")
+    return record
+
+
+def gemm_bf16_bound(M, N, K):
+    """(ms, "bytes" or "operations"): the least time of a bfloat16 GEMM:
+    its 2MNK operations at the card's bfloat16 tensor-core rate, or its
+    bytes (A and B read once, C written once, 2 bytes each) over the HBM
+    rate, the larger."""
+    return _bound(2.0 * M * N * K, 2.0 * (M * K + K * N + M * N),
+                  peak=H100_SXM.peak_bf16_tensor_flops)
+
+
+def phase_times_bf16(gemm_cfgs, flash_cfg, flash_shape, shapes, device):
+    """The bfloat16 builds against their library calls in bfloat16, the
+    versions in turns (the median of 5 runs of back-to-back launches),
+    each beside its bound at the card's bfloat16 rate: the GEMM at each
+    of ``shapes`` with each of ``gemm_cfgs`` (label -> config) beside
+    torch.matmul (a config given twice is timed once, under its first
+    label), and flash on ``flash_shape`` = (lead, S, D) causal with
+    ``flash_cfg`` beside SDPA.  Every result is held against the
+    library's at BF16_TOL."""
+    record = {"gemm": []}
+    for shape in shapes:
+        M, N, K = shape
+        a, b = inputs(shape, "bfloat16", False, device, seed=2)
+        gemms = {}
+        for label, cfg in gemm_cfgs.items():
+            fn = make_matmul(M, N, K, dict(cfg, ACC_IN_OUTPUT=False),
+                             out_dtype=torch.bfloat16)
+            if all(fn.config != g.config for g in gemms.values()):
+                gemms[label] = fn
+        fns = {label: (lambda fn=fn: fn(a, b)) for label, fn in gemms.items()}
+        fns["library"] = lambda: torch.matmul(a, b)
+        runs = time_in_turns(fns, device)
+        lib = torch.matmul(a, b)
+        bound_ms, bound_by = gemm_bf16_bound(M, N, K)
+        rec = {"shape": list(shape), "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "library_ms": float(np.median(runs["library"])),
+               "library_ms_runs": runs["library"], "kernels": {}}
+        for label, fn in gemms.items():
+            out = fn(a, b)
+            ms = float(np.median(runs[label]))
+            rec["kernels"][label] = {
+                "config": fn.config, "ms": ms, "ms_runs": runs[label],
+                "share_of_bound": bound_ms / ms,
+                "over_library": ms / rec["library_ms"],
+                "err_library": max_err(out, lib),
+                "share_library": tol_share(out, lib, BF16_TOL, BF16_TOL)}
+        print("[times-bf16] gemm " + json.dumps(rec))
+        record["gemm"].append(rec)
+        bad = {k: v for k, v in rec["kernels"].items()
+               if not v["share_library"] <= 1.0}
+        if bad:
+            raise AssertionError(f"bf16 GEMM at {shape} against "
+                                 f"torch.matmul: {bad}")
+    lead, S, D = flash_shape
+    fn = fa.make_flash_attention(S, S, D, flash_cfg, causal=True,
+                                 dtype=torch.bfloat16)
+    q, k, v = flash_inputs(lead, S, S, D, "bfloat16", device, seed=2)
+    q4, k4, v4 = (x.reshape(-1, 1, S, D) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+
+    runs = time_in_turns({"kernel": lambda: fn(q, k, v), "library": library},
+                         device, iters=10)
+    out, lib = fn(q, k, v), library().reshape(q.shape)
+    heads = int(np.prod(lead)) if lead else 1
+    bound_ms, bound_by = _bound(
+        heads * fa.attention_flops(S, S, D, causal=True),
+        2.0 * heads * 4 * S * D, peak=H100_SXM.peak_bf16_tensor_flops)
+    rec = {"shape": list(lead) + [S, S, D], "config": fn.config,
+           "ms": float(np.median(runs["kernel"])), "ms_runs": runs["kernel"],
+           "library_ms": float(np.median(runs["library"])),
+           "library_ms_runs": runs["library"],
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "err_library": max_err(out, lib),
+           "share_library": tol_share(out, lib, BF16_TOL, BF16_TOL)}
+    rec["share_of_bound"] = bound_ms / rec["ms"]
+    rec["over_library"] = rec["ms"] / rec["library_ms"]
+    print("[times-bf16] flash " + json.dumps(rec))
+    record["flash"] = rec
+    if not rec["share_library"] <= 1.0:
+        raise AssertionError(f"bf16 flash against SDPA: {rec}")
     return record
 
 
@@ -690,12 +899,13 @@ def phase_build_new(objs, device):
     return time.perf_counter() - t0
 
 
-def phase_build_space(device, workers=16, stride=4):
+def phase_build_space(device, workers=16, stride=4, gemm_stride=4):
     """Build every ``stride``-th distinct conv2d library of the extended
     space at 3x3, in enumeration order, and read ptxas's registers and
     spills: the register tile is capped so that none spills.  (Every one of
     the 372 was built spill-free before; the stride keeps the script in its
-    time limit.)"""
+    time limit.)  Then every ``gemm_stride``-th bfloat16 GEMM build of the
+    compact space (:func:`_build_space_gemm_bf16`)."""
     shape = {"H": 4096, "W": 4096, "Fh": 3, "Fw": 3}
     distinct = {}
     for c in cv.CONV2D.make_space(shape, extended=True).enumerate():
@@ -727,6 +937,87 @@ def phase_build_space(device, workers=16, stride=4):
     if record.get("spilling"):
         raise AssertionError(f"{len(spills)} conv builds of the 3x3 space "
                              "spill")
+    record["gemm_bf16"] = _build_space_gemm_bf16(device, workers,
+                                                 gemm_stride)
+    return record
+
+
+def _sass_mnemonics(lib):
+    """How often each SASS mnemonic occurs in a built library
+    (``cuobjdump -sass``)."""
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    # "/*0150*/  @!P0 HMMA.16816.F32.BF16 ...": address, predicate, opcode
+    for m in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9]*)", sass):
+        counts[m] = counts.get(m, 0) + 1
+    return counts
+
+
+def _build_space_gemm_bf16(device, workers, stride, shape=(256, 256, 256)):
+    """Build every ``stride``-th distinct bfloat16 GEMM library of the
+    compact space (the configs the build takes: ACC_IN_OUTPUT needs a
+    float32 output), none may spill; launch each once at ``shape``
+    against gemm_plain (BF16_TOL), with its threads and shared bytes
+    against the models; and read one library's SASS, which must hold the
+    tensor cores' HMMA."""
+    M, N, K = shape
+    space = GEMM.make_space({"M": 2048, "N": 2048, "K": 2048,
+                             "dtype": "bfloat16"})
+    distinct = {}
+    for c in space.enumerate():
+        if not c["ACC_IN_OUTPUT"]:
+            fn = make_matmul(M, N, K, c, out_dtype=torch.bfloat16)
+            distinct.setdefault(
+                tuple(sorted(mm_kernel._defines(fn.config, fn.dtype)
+                             .items())), fn)
+    fns = list(distinct.values())[::stride]
+    record = {"distinct": len(distinct), "stride": stride,
+              "builds": len(fns)}
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(lambda f: f.compile(), fns))
+        record["seconds"] = time.perf_counter() - t0
+    registers, spills, bad = {}, [], []
+    a, b = inputs(shape, "bfloat16", False, device)
+    for fn in fns:
+        out = fn(a, b)
+        sync(device)
+        share = tol_share(out, gemm_plain(a, b, fn.config), BF16_TOL,
+                          BF16_TOL)
+        if not (torch.isfinite(out.float()).all() and share <= 1.0):
+            bad.append({"config": fn.config, "share_plain": share})
+        if device.type != "cuda":
+            continue
+        want = (mm_kernel.block_threads(fn.config, 2),
+                smem_footprint(fn.config, 2))
+        if fn.geometry() != want:
+            bad.append({"config": fn.config, "built": fn.geometry(),
+                        "modelled": want})
+        lines = ptxas_info(fn)
+        regs = max(int(m) for line in lines
+                   for m in re.findall(r"Used (\d+) registers", line))
+        registers[regs] = registers.get(regs, 0) + 1
+        if spill_bytes(lines):
+            spills.append({"config": fn.config, "lines": lines})
+    if device.type == "cuda":
+        lib = build.library_path(mm_kernel.BUILD_NAME,
+                                 fns[0].address.split(":", 1)[1])
+        record["sass"] = {k: v for k, v in _sass_mnemonics(lib).items()
+                          if k in ("HMMA", "LDSM", "LDGSTS", "FFMA")}
+        record["sass_of"] = fns[0].config
+    record.update(registers=dict(sorted(registers.items())),
+                  spilling=spills, bad=bad)
+    print("[build-space] gemm bf16 " + json.dumps(record))
+    if spills or bad:
+        raise AssertionError(f"bf16 GEMM builds: {len(spills)} spill, "
+                             f"{len(bad)} disagree: {bad}")
+    if device.type == "cuda" and not record["sass"].get("HMMA"):
+        raise AssertionError(f"the bf16 GEMM's SASS holds no HMMA: "
+                             f"{record['sass']}")
     return record
 
 
@@ -2339,6 +2630,13 @@ def _train_variants(trainer, device):
     return rec
 
 
+def _train_resume_deterministic(device, tmp, full):
+    """:func:`_train_resume` in a spawned process: deterministic cuBLAS is
+    read when the process first calls it, so it is set before."""
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    return _train_resume(device, tmp, full)
+
+
 def _train_resume(device, tmp, full):
     """Part 4: 8 steps at full width cut to 2 layers, checkpoints every 4,
     a crash at step 5, a fresh Trainer restores step 4 and resumes: its
@@ -2455,7 +2753,10 @@ def phase_train(device, tmp, full, ckpt_full=True):
     del trainer
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    record["resume"] = _train_resume(device, tmp, full)
+    # in a process of its own: deterministic cuBLAS caps its workspace,
+    # which would slow every torch.matmul yardstick of this one
+    record["resume"] = in_process(_train_resume_deterministic, device, tmp,
+                                  full)
     print("[train] resume " + json.dumps(record["resume"]))
     record["launcher"] = _train_launcher_and_mamba(device, tmp, full)
     print("[train] launcher " + json.dumps(record["launcher"]))
@@ -2489,11 +2790,11 @@ def _time_case(fn, args, plain, library, device, iters, plain_iters,
     return rec
 
 
-def phase_sdpa_route(S, D, device):
-    """Names the CUDA kernels one float32 F.scaled_dot_product_attention
-    call (the flash yardstick, causal) launches, from one torch.profiler
+def phase_sdpa_route(S, D, device, dtype="float32"):
+    """Names the CUDA kernels one F.scaled_dot_product_attention call (the
+    flash yardstick, causal) in ``dtype`` launches, from one torch.profiler
     trace: which of PyTorch's routes the library time measures."""
-    q, k, v = (x[None, None] for x in flash_inputs((), S, S, D, "float32",
+    q, k, v = (x[None, None] for x in flash_inputs((), S, S, D, dtype,
                                                     device, seed=3))
     F.scaled_dot_product_attention(q, k, v, is_causal=True)   # warm-up
     sync(device)
@@ -2513,7 +2814,7 @@ def phase_sdpa_route(S, D, device):
                 and not e.name.startswith(("Memcpy", "Memset")):
             us[e.name] = us.get(e.name, 0.0) + e.time_range.elapsed_us()
     kernels = [{"kernel": name, "device_us": t} for name, t in us.items()]
-    print(f"[sdpa-route] F.scaled_dot_product_attention float32 "
+    print(f"[sdpa-route] F.scaled_dot_product_attention {dtype} "
           f"(1, 1, {S}, {D}) causal launched: " + json.dumps(kernels))
     if not any(t > 0 for t in us.values()):
         raise AssertionError("[sdpa-route] the trace holds no device time")
@@ -3005,11 +3306,14 @@ def main(argv=None):
     ap.add_argument("--rehearse", action="store_true",
                     help="run the control flow on the CPU at tiny shapes "
                          "with the plain versions; prints no result")
+    ap.add_argument("--times-bf16", nargs=2,
+                    metavar=("GEMM_CONFIG", "FLASH_CONFIG"),
+                    help="run [times-bf16] alone, with these float32 "
+                         "winners (JSON), and print no result: run from a "
+                         "copy of this script in another tree, it times "
+                         "that tree's builds")
     args = ap.parse_args(argv)
     t_main = time.perf_counter()
-    # deterministic cuBLAS for [train]'s crash-and-restore check: read when
-    # CUDA starts, so it is set before anything touches the card
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if args.rehearse:
         device, main_shape, budget = torch.device("cpu"), (256, 256, 256), 6
         big, conv_main, conv_big = (128, 256), (64, 256, 3, 3), [
@@ -3018,25 +3322,37 @@ def main(argv=None):
         conv_budget, flash_budget = 6, 4
         predict_shape, lookup_shape = (512, 512, 128), (128, 512, 512)
         online_shape = (64, 512, 256)
+        bf16_shapes, bf16_budget = ((256,) * 3, (512,) * 3), 4
     else:
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
             return 2
-        device, main_shape, budget = torch.device("cuda"), (2048,) * 3, 32
+        device, main_shape, budget = torch.device("cuda"), (2048,) * 3, 24
         # the paper's conv sizes (section V) and the flash declaration's
         # default shape; the searches' budgets are cut for the time limit
         big, conv_main, conv_big = (4096, 4096), (4096, 4096, 3, 3), [
             (8192, 4096, 7, 7), (8192, 4096, 11, 11)]
         big_s, flash_main, flash_lead = 4096, (4096, 4096, 128), (2, 8)
-        conv_budget, flash_budget = 48, 24
+        conv_budget, flash_budget = 32, 24
         # shapes no other phase tunes
         predict_shape, lookup_shape = (4096, 4096, 1024), (1024, 4096, 4096)
         # M = 256: the heuristic's 128 x 128 tiles fill 64 of 132 SMs
         online_shape = (256, 4096, 2048)
+        # the main path's shape and the next power of two
+        bf16_shapes, bf16_budget = ((2048,) * 3, (4096,) * 3), 24
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "tuned_configs.json")
 
     smi, _ = phase_environment(device)
+    if args.times_bf16:
+        gemm_cfg, flash_cfg = (json.loads(c) for c in args.times_bf16)
+        phase_sdpa_route(flash_main[0], flash_main[2], device,
+                         dtype="bfloat16")
+        phase_times_bf16({"f32_winner": gemm_cfg,
+                          "heuristic": heuristic_config(*main_shape)},
+                         flash_cfg, (flash_lead, flash_main[0], flash_main[2]),
+                         bf16_shapes, device)
+        return 0
     cases = [(name, h100_twin(cfg), shape, dtype)
              for name, cfg, shape, dtype in REFERENCE_CASES]
     fns, heur = phase_build(cases, main_shape, device)
@@ -3047,6 +3363,8 @@ def main(argv=None):
     # without device activities on the card (a trace of many kernels, as
     # [serve] takes, did not)
     sdpa_route = phase_sdpa_route(flash_main[0], flash_main[2], device)
+    sdpa_route_bf16 = phase_sdpa_route(flash_main[0], flash_main[2], device,
+                                       dtype="bfloat16")
 
     ccases, fcases = conv_cases(), flash_cases()
     conv_fns = {(name, size): cv.make_conv2d(*size, *filt, cfg, weight)
@@ -3068,7 +3386,7 @@ def main(argv=None):
                   for cfg in conv_large_configs()]
     flash_heur = fa.make_flash_attention(
         *flash_main, fa.heuristic_config(*flash_main))
-    new = {"sdpa_route": sdpa_route}
+    new = {"sdpa_route": sdpa_route, "sdpa_route_bf16": sdpa_route_bf16}
 
     def conv_timed():
         """(label, config, shape) of the conv main shapes: the 3x3
@@ -3104,6 +3422,16 @@ def main(argv=None):
                 ccases, conv_bf16_fns, big, device, conv_timed())),
             ("flash_main", lambda: phase_flash_main(flash_main, flash_lead,
                                                     device, flash_budget)),
+            # the float32 searches' winners and the GEMM heuristic, built
+            # in bfloat16
+            ("times_bf16", lambda: phase_times_bf16(
+                {"f32_winner": main_rec["winner"],
+                 "heuristic": heuristic_config(*main_shape)},
+                new["flash_main"]["winner"],
+                (flash_lead, flash_main[0], flash_main[2]), bf16_shapes,
+                device)),
+            ("main_bf16", lambda: phase_main_bf16(main_shape, device,
+                                                  bf16_budget)),
             ("wallclock_gap", lambda: phase_wallclock_gap(main_path(),
                                                           device)),
             ("analyze", lambda: phase_analyze(main_path(), device, main_shape,
@@ -3164,6 +3492,14 @@ def main(argv=None):
             "plain_ms": k["plain_ms"], "bound_ms": times["bound_ms"],
             "bound_by": times["bound_by"],
             "library_ms": times["library_ms"]})
+    bf16 = new["main_bf16"]
+    line["kernels"].append({
+        "name": "gemm_bf16", "route": "cuda", "source": SOURCE,
+        "replaces": REPLACES["gemm_scratch"],
+        "launches": bf16["launches"]["gemm_scratch"],
+        "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
+        "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
+        "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"]})
     for name, rec, label in (("conv2d", conv_rec, conv_label),
                              ("flash_attention", flash_rec, flash_label)):
         k = new["times_new"][label]

@@ -2,12 +2,15 @@
 
 The CUDA kernel ``csrc/gemm.cu`` replaces the JAX package's two Pallas
 TPU kernel bodies, ``repro/kernels/matmul/matmul.py::_mm_kernel_scratch``
-and ``::_mm_kernel_inplace``.  It is float32 FMA work (no tensor cores, no
-TF32), bound by FLOPs on this card; the source's head note says how the
-design keeps the FMA units fed: register micro-tiles read from shared
-memory 16 bytes at a time, and a ring of PIPELINE_DEPTH shared-memory
-stages filled with cp.async, so the copies of later K slices are in
-flight while the FMAs of the current one run.
+and ``::_mm_kernel_inplace``.  Both of its builds are bound by operations
+on this card and stage their operands in a ring of PIPELINE_DEPTH
+shared-memory stages filled with cp.async, so the copies of later K
+slices are in flight while the current one is multiplied.  The bfloat16
+build multiplies on the tensor cores (``mma.sync`` fed by ``ldmatrix``
+from swizzled stages; a warp owns a :func:`warp_tile` of the output in
+float32 fragments); the float32 build on the FMA units (no tensor cores,
+no TF32), each thread owning a :func:`micro_tile` of the output in
+registers.  The source's head note says how each is laid out.
 
 Parameter vocabulary (paper Table IV, re-derived for Hopper):
 
@@ -26,9 +29,13 @@ Parameter vocabulary (paper Table IV, re-derived for Hopper):
                                 the JAX package
   TRANS_A     True|False        A arrives (K, M): C = A^T B (the paper's form)
 
-The thread geometry follows from the block shape inside the build: each
-thread owns a TM x TN micro-tile, TM = 8 when BLOCK_M >= 64 else 4 (TN
-likewise), so a block has (BLOCK_M/TM) * (BLOCK_N/TN) threads.
+The thread geometry follows from the block shape inside the build
+(:func:`block_threads`).  In float32 each thread owns a TM x TN
+micro-tile, TM = 8 when BLOCK_M >= 64 else 4 (TN likewise), so a block
+has (BLOCK_M/TM) * (BLOCK_N/TN) threads.  In bfloat16 each warp owns a
+WM x WN warp tile, the largest of 64, 32 and 16 that divides half the
+block side, else 16 (WN at most 32 under a bfloat16 accumulator), so a
+block has 32 * (BLOCK_M/WM) * (BLOCK_N/WN) threads.
 
 PIPELINE_DEPTH (the extended space's; 2 where a config does not name it,
 the JAX default) is the number of shared-memory stages.  The extended
@@ -90,6 +97,33 @@ def micro_tile(config: Config) -> Tuple[int, int, int]:
     tm = 8 if bm >= 64 else 4
     tn = 8 if bn >= 64 else 4
     return tm, tn, (bm // tm) * (bn // tn)
+
+
+def warp_tile(config: Config) -> Tuple[int, int, int]:
+    """(WM, WN, threads per block) the bfloat16 build derives from the
+    block shape: each warp owns a WM x WN tile of the output as float32
+    mma fragments, WM the largest of 64, 32 and 16 that divides half of
+    BLOCK_M (else 16), WN likewise for BLOCK_N but at most 32 under a
+    bfloat16 accumulator (which keeps a second set of fragments).  Two
+    warps along each side keep a 64 x 64 block at four warps: one warp of
+    64 x 64 fragments spills there.  Raises ``ValueError`` when a block
+    side is not a multiple of 16 (the mma's m16 and two n8 tiles)."""
+    bm, bn = config["BLOCK_M"], config["BLOCK_N"]
+    if bm % 16 or bn % 16:
+        raise ValueError(f"the bfloat16 build takes blocks ({bm},{bn}) in "
+                         "multiples of 16 (mma tiles)")
+    acc_bf16 = config.get("ACC_DTYPE", "float32") == "bfloat16"
+    wm = next((w for w in (64, 32, 16) if bm % (2 * w) == 0), 16)
+    wn = next((w for w in ((32, 16) if acc_bf16 else (64, 32, 16))
+               if bn % (2 * w) == 0), 16)
+    return wm, wn, 32 * (bm // wm) * (bn // wn)
+
+
+def block_threads(config: Config, elt_bytes: int = 4) -> int:
+    """Threads of one block of the build for ``elt_bytes``-wide operands:
+    the float32 build's :func:`micro_tile` or the bfloat16 build's
+    :func:`warp_tile`."""
+    return (micro_tile(config) if elt_bytes == 4 else warp_tile(config))[2]
 
 
 def validate_config(config: Config, M: int, N: int, K: int) -> None:
@@ -189,6 +223,7 @@ class Gemm:
             raise ValueError(f"the GEMM takes float32 or bfloat16, not {dtype}")
         if cfg["ACC_IN_OUTPUT"] and dtype != torch.float32:
             raise ValueError("ACC_IN_OUTPUT requires a float32 output")
+        block_threads(cfg, dtype.itemsize)     # the build's own refusals
         self.M, self.N, self.K = M, N, K
         self.config = cfg
         self.dtype = dtype
@@ -284,7 +319,11 @@ WAVE_OVERHEAD_S = 1.0e-6
 
 def analytical_time(config: Config, profile: DeviceProfile,
                     M: int, N: int, K: int, elt_bytes: int = 4) -> float:
-    """max(FLOPs / f32 peak, bytes / HBM bandwidth) + per-wave overhead.
+    """max(FLOPs / peak, bytes / HBM bandwidth) + per-wave overhead.
+
+    The peak is the rate of the units the build multiplies on: the
+    float32 FMA rate for 4-byte operands, the bfloat16 tensor-core rate
+    for 2-byte ones.
 
     The bytes are what the blocks stream: every block reads its BLOCK_M
     rows of A and BLOCK_N columns of B over all of K, and writes its tile
@@ -302,7 +341,9 @@ def analytical_time(config: Config, profile: DeviceProfile,
     if not profile.fits_smem(smem_footprint(cfg, elt_bytes)):
         return math.inf                       # the paper's local-memory cliff
     gm, gn = M // bm, N // bn
-    compute_t = flops(M, N, K) / profile.peak_f32_flops
+    peak = (profile.peak_f32_flops if elt_bytes == 4
+            else profile.peak_bf16_tensor_flops)
+    compute_t = flops(M, N, K) / peak
     traffic = gm * gn * (bm + bn) * K * elt_bytes + M * N * elt_bytes
     memory_t = traffic / profile.hbm_bw
     waves = math.ceil(gm * gn / profile.sm_count)

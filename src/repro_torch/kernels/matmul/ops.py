@@ -24,8 +24,8 @@ from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
 from . import ref
-from .matmul import (DTYPES, SOURCE, analytical_time, make_matmul,
-                     micro_tile, smem_footprint, traffic)
+from .matmul import (DTYPES, SOURCE, analytical_time, block_threads,
+                     make_matmul, micro_tile, smem_footprint, traffic)
 
 KERNEL_NAME = "gemm"
 
@@ -171,7 +171,7 @@ def _make_args(shape: Shape, rng: np.random.Generator):
         cfg, prof, s["M"], s["N"], s["K"], elt_bytes=_elt_bytes(s)),
     smem_footprint=lambda s, cfg: smem_footprint(
         cfg, elt_bytes=_elt_bytes(s)),
-    block_threads=lambda s, cfg: micro_tile(cfg)[2],
+    block_threads=lambda s, cfg: block_threads(cfg, _elt_bytes(s)),
     cost=lambda s, cfg: traffic(cfg, s["M"], s["N"], s["K"],
                                 elt_bytes=_elt_bytes(s)),
     sources=(SOURCE,),
@@ -188,10 +188,11 @@ def GEMM(shape: Shape, config: Config):
 def lookup_config(M: int, N: int, K: int,
                   profile: Optional[DeviceProfile] = None,
                   cache: Optional[TuningCache] = None,
-                  policy: "AutotunePolicy | str | None" = None
+                  policy: "AutotunePolicy | str | None" = None,
+                  dtype: "torch.dtype | str" = "float32"
                   ) -> Dict[str, Any]:
-    return lookup(GEMM, _shape(M, N, K), profile=profile, cache=cache,
-                  policy=policy)
+    return lookup(GEMM, _shape(M, N, K, dtype), profile=profile,
+                  cache=cache, policy=policy)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor,
@@ -203,7 +204,8 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     """C = alpha * op(A) @ B (+ beta * C), on the tiled GEMM.
 
     With ``config=None`` the configuration comes from the registry for the
-    profile of ``a``'s device (``profile`` overrides).  The alpha/beta
+    profile of ``a``'s device (``profile`` overrides) and ``a``'s dtype:
+    a bfloat16 product resolves what was tuned for bfloat16.  The alpha/beta
     epilogue is plain PyTorch; the kernel does the FLOP-heavy product, as
     in the paper's GEMM.
     """
@@ -212,7 +214,7 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     K = a.shape[0] if trans else a.shape[1]
     N = b.shape[1]
     cfg = config or lookup_config(M, N, K, resolve_profile(profile, a.device),
-                                  policy=policy)
+                                  policy=policy, dtype=a.dtype)
     out = make_matmul(M, N, K, cfg, out_dtype=a.dtype)(a, b)
     if alpha != 1.0:
         out = alpha * out

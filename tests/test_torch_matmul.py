@@ -148,6 +148,16 @@ def test_model_is_bounded_by_the_f32_roofline():
     assert t_small > t
 
 
+def test_model_is_bounded_by_the_bf16_roofline():
+    # bfloat16 operands run on the tensor cores: the model prices them at
+    # the card's bfloat16 rate, far under the float32 FMA time
+    cfg = {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 32}
+    t = analytical_time(cfg, H100_SXM, 2048, 2048, 2048, elt_bytes=2)
+    assert t >= 2 * 2048 ** 3 / H100_SXM.peak_bf16_tensor_flops
+    assert t < 2 * 2048 ** 3 / H100_SXM.peak_f32_flops
+    assert t < analytical_time(cfg, H100_SXM, 2048, 2048, 2048)
+
+
 def test_extended_space_exceeds_paper_scale():
     params, _ = tuning_space(extended=True)
     sp = SearchSpace()
