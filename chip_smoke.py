@@ -5,7 +5,10 @@
                                         # plain versions only, tiny shapes
     python3 chip_smoke.py --times-bf16 GEMM_CONFIG FLASH_CONFIG
                                         # [times-bf16] alone at these
-                                        # float32 winners (JSON)
+                                        # configs (JSON)
+    python3 chip_smoke.py --sass-against PARENT_ROOT SOURCE DEFINES...
+                                        # one source's SASS from this
+                                        # tree and another, compared
 
 It drives the port's three main paths — tune -> record -> lookup -> run —
 through the entry points a user calls, and holds every CUDA kernel on
@@ -24,9 +27,10 @@ each printing its own lines:
   5. GEMM times at 2048^3: tuned kernel, heuristic config, plain version,
      torch.matmul as the library yardstick, and the FLOP bound
   6. build_new: every conv2d and flash configuration of phases 7-10 and
-     13, all nvcc runs at once; built threads and shared bytes (and each
-     conv build's register micro-tile) against the models; ptxas's
-     registers and spills of each conv build
+     13 and both flash spaces at (4096, 4096, 128), all nvcc
+     runs at once; built threads and shared bytes (and each conv build's
+     register micro-tile) against the models; ptxas's registers and spills
+     of each conv build
   7. conv sweep: every case of the JAX package's conv2d tests, plus even
      filters, at its shape and at 4096^2, against conv2d_plain and the
      oracle (tolerance 1e-4, the JAX tests'); then conv-bf16: every case
@@ -36,20 +40,30 @@ each printing its own lines:
      Sq > Sk causal (rows that see no key must return the mean of v) and
      bf16 inputs, at its shape and at the 4096 twin (D = 128), against
      flash_plain and the oracle (2e-5 and 3e-2 as in the JAX tests; at 4096
-     a float32 bound derived from summation order, flash_bound)
+     a float32 bound derived from summation order, flash_bound); then every
+     float32 case again with bf16 operands (the tensor-core build), against
+     flash_plain (which rounds P where the build does) and the float32
+     oracle of the same inputs (3e-2)
   9. conv main path: tune_kernel(CONV2D) at 4096^2 3x3 (annealing, the
-     extended space, budget 32), lookup "exact", conv2d(config=None); then
+     extended space, budget 24), lookup "exact", conv2d(config=None); then
      conv2d(config=None) at 8192x4096 with 7x7 and 11x11 (heuristic)
  10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
      causal (budget 24), lookup "exact", flash_attention(config=None) on
-     (2, 8, 4096, 128) float32: one launch for all 16 heads; then
+     (2, 8, 4096, 128) float32: one launch for all 16 heads; flash-main-bf16:
+     the same path in bfloat16 on the tensor cores (budget 24 over the
+     15-point bfloat16 space, every candidate held to the oracle at 3e-2,
+     lookup "exact" under the bfloat16 key, the float32 record at the same
+     shape still the float32 winner, flash_attention(config=None) on
+     bfloat16 heads in one launch against the float32 oracle, the winner
+     timed beside flash_plain and SDPA in bfloat16); then
      times-bf16: every kernel's bfloat16 build beside its library call in
      bfloat16 and its bound at the card's bfloat16 rate (the GEMM at 2048^3
      and 4096^3 with the float32 search's winner and the heuristic config
-     beside torch.matmul, flash on (2, 8, 4096, 128) causal with the flash
-     search's winner beside SDPA; conv-bf16 times the conv); main-bf16: the
+     beside torch.matmul, flash on (2, 8, 4096, 128) causal with the
+     bfloat16 and the float32 searches' winners beside SDPA; conv-bf16
+     times the conv); main-bf16: the
      GEMM main path in bfloat16 on the tensor cores, tune_kernel at 2048^3
-     (compact space, budget 24, every candidate held to the oracle at
+     (compact space, budget 16, every candidate held to the oracle at
      3e-2), lookup "exact", matmul(config=None) on bfloat16 tensors, the
      winner timed beside its plain version and torch.matmul; then
      wallclock-gap: each of the three search winners' sample in its search
@@ -113,7 +127,9 @@ each printing its own lines:
      uninterrupted run; the
      launcher (--full, 4 steps) and mamba2-130m (10 steps); then the
      distribution layer, each part in a spawned process of its own (one
-     default process group each): dist (an NCCL world of one rank,
+     default process group each; dryrun and sharding-tune need no card,
+     start with the script and are collected before the conv search):
+     dist (an NCCL world of one rank,
      make_host_mesh() -> a 1x1 ("data", "model") mesh; granite-3-2b at
      full width and depth trained 4 steps at 8 x 256 through Trainer with
      and without the mesh, losses within 1e-3, step ms and peak; a
@@ -129,12 +145,15 @@ each printing its own lines:
      train_bound_ms's count, its peak within 25 % of dist's) and
      sharding-tune (tune_cell over granite-3-2b train_4k, greedy,
      budget 4, the winner resolved by lookup with provenance "exact");
-     then build_space: every eighth distinct conv build of the extended
-     space at 3x3 (47 of its 372) and every fourth bfloat16 GEMM build of
-     the compact space (36 of 144), 16 nvcc at a time, with ptxas's
+     then build_space: every fourth distinct conv build of the extended
+     space at 3x3 (93 of its 372), every fourth bfloat16 GEMM build of
+     the compact space (36 of 144) and every build of the bfloat16 flash
+     space at (4096, 4096, 128) (15), 16 nvcc at a time, with ptxas's
      registers and spills (none may spill; after the searches, so their
      nvcc time stays their own); each GEMM build launched at 256^3
-     against gemm_plain, and one's SASS must hold the tensor cores' HMMA
+     against gemm_plain, and one's SASS must hold the tensor cores' HMMA;
+     each flash build launched on 2 x 512 x 512 heads against flash_plain,
+     and every one's SASS must hold HMMA
  11. the CUDA kernels one F.scaled_dot_product_attention call launches,
      in float32 and in bfloat16 (the device activities of one
      torch.profiler trace each, taken right after phase 5; no device time
@@ -154,9 +173,11 @@ Each main path zeroes its kernels' launch counters just before it and
 reads them just after (the dtune workers of the process driver count in
 their own processes and report what they launched, and each of them must
 have launched the GEMM; the islands and online paths run in this one).  The
-searches' budgets (GEMM 24 in float32 and 24 in bfloat16, conv 32, flash
-24) are cut from the declarations' defaults for the time limit: a search is
-bound by nvcc, about 2.7-3.6 s per configuration.  The dtune workers are
+searches' budgets (GEMM 16 in float32 and 16 in bfloat16, conv 24, flash
+24 in float32 and 24 in bfloat16) are cut from the declarations' defaults
+for the time limit: a search is bound by nvcc, about 2.7-4 s per
+configuration (both flash spaces are built in build_new with the rest,
+all at once, so those searches load their libraries).  The dtune workers are
 spawned, so this script imports without side effects: its work is under
 __main__.
 
@@ -667,15 +688,15 @@ def gemm_bf16_bound(M, N, K):
                   peak=H100_SXM.peak_bf16_tensor_flops)
 
 
-def phase_times_bf16(gemm_cfgs, flash_cfg, flash_shape, shapes, device):
+def phase_times_bf16(gemm_cfgs, flash_cfgs, flash_shape, shapes, device):
     """The bfloat16 builds against their library calls in bfloat16, the
     versions in turns (the median of 5 runs of back-to-back launches),
     each beside its bound at the card's bfloat16 rate: the GEMM at each
     of ``shapes`` with each of ``gemm_cfgs`` (label -> config) beside
     torch.matmul (a config given twice is timed once, under its first
-    label), and flash on ``flash_shape`` = (lead, S, D) causal with
-    ``flash_cfg`` beside SDPA.  Every result is held against the
-    library's at BF16_TOL."""
+    label), and flash on ``flash_shape`` = (lead, S, D) causal with each
+    of ``flash_cfgs`` (label -> config, the same rule) beside SDPA.  Every
+    result is held against the library's at BF16_TOL."""
     record = {"gemm": []}
     for shape in shapes:
         M, N, K = shape
@@ -712,34 +733,45 @@ def phase_times_bf16(gemm_cfgs, flash_cfg, flash_shape, shapes, device):
             raise AssertionError(f"bf16 GEMM at {shape} against "
                                  f"torch.matmul: {bad}")
     lead, S, D = flash_shape
-    fn = fa.make_flash_attention(S, S, D, flash_cfg, causal=True,
-                                 dtype=torch.bfloat16)
+    flashes = {}
+    for label, cfg in flash_cfgs.items():
+        fn = fa.make_flash_attention(S, S, D, cfg, causal=True,
+                                     dtype=torch.bfloat16)
+        if all(fn.config != f.config for f in flashes.values()):
+            flashes[label] = fn
     q, k, v = flash_inputs(lead, S, S, D, "bfloat16", device, seed=2)
     q4, k4, v4 = (x.reshape(-1, 1, S, D) for x in (q, k, v))
 
     def library():
         return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
 
-    runs = time_in_turns({"kernel": lambda: fn(q, k, v), "library": library},
-                         device, iters=10)
-    out, lib = fn(q, k, v), library().reshape(q.shape)
+    fns = {label: (lambda fn=fn: fn(q, k, v))
+           for label, fn in flashes.items()}
+    runs = time_in_turns(dict(fns, library=library), device, iters=10)
+    lib = library().reshape(q.shape)
     heads = int(np.prod(lead)) if lead else 1
     bound_ms, bound_by = _bound(
         heads * fa.attention_flops(S, S, D, causal=True),
         2.0 * heads * 4 * S * D, peak=H100_SXM.peak_bf16_tensor_flops)
-    rec = {"shape": list(lead) + [S, S, D], "config": fn.config,
-           "ms": float(np.median(runs["kernel"])), "ms_runs": runs["kernel"],
+    rec = {"shape": list(lead) + [S, S, D], "bound_ms": bound_ms,
+           "bound_by": bound_by,
            "library_ms": float(np.median(runs["library"])),
-           "library_ms_runs": runs["library"],
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "err_library": max_err(out, lib),
-           "share_library": tol_share(out, lib, BF16_TOL, BF16_TOL)}
-    rec["share_of_bound"] = bound_ms / rec["ms"]
-    rec["over_library"] = rec["ms"] / rec["library_ms"]
+           "library_ms_runs": runs["library"], "kernels": {}}
+    for label, fn in flashes.items():
+        out = fn(q, k, v)
+        ms = float(np.median(runs[label]))
+        rec["kernels"][label] = {
+            "config": fn.config, "ms": ms, "ms_runs": runs[label],
+            "share_of_bound": bound_ms / ms,
+            "over_library": ms / rec["library_ms"],
+            "err_library": max_err(out, lib),
+            "share_library": tol_share(out, lib, BF16_TOL, BF16_TOL)}
     print("[times-bf16] flash " + json.dumps(rec))
     record["flash"] = rec
-    if not rec["share_library"] <= 1.0:
-        raise AssertionError(f"bf16 flash against SDPA: {rec}")
+    bad = {k: v for k, v in rec["kernels"].items()
+           if not v["share_library"] <= 1.0}
+    if bad:
+        raise AssertionError(f"bf16 flash against SDPA: {bad}")
     return record
 
 
@@ -755,6 +787,13 @@ CONV_TOL = 1e-4
 FLASH_TOL = 2e-5
 #: a float32 unit roundoff
 U32 = 2.0 ** -24
+#: a bfloat16 flash build against flash_plain, which rounds P and the output
+#: where the build does (flash_bf16_agreement): two bfloat16 ulps of the
+#: element at most (2^-6 relative), plus 2^-7 of the rms of the element's
+#: row, and at most 1 % of the elements may differ at all
+FLASH_BF16_RTOL = 2.0 ** -6
+FLASH_BF16_ROW_ATOL = 2.0 ** -7
+FLASH_BF16_DIFFER = 0.01
 
 #: the configs tests/test_kernels_conv2d.py sweeps
 CONV_CONFIGS = [
@@ -785,7 +824,8 @@ def conv_cases():
 def flash_cases():
     """(name, config, lead dims, Sq, Sk, D, causal, dtype): every case of
     tests/test_kernels_attention.py (its block sweep at four points), plus
-    Sq > Sk causal (rows with every key masked) and bf16 inputs."""
+    Sq > Sk causal (rows with every key masked) and bf16 inputs; then
+    every float32 case again with bf16 operands (the tensor-core build)."""
     cases = [(f"CONFIGS[{i}] causal={c}", cfg, (), 256, 256, 64, c,
               "float32")
              for i, cfg in enumerate([{"BLOCK_Q": 128, "BLOCK_K": 128},
@@ -806,14 +846,17 @@ def flash_cases():
                256, 256, d, True, "float32")
               for bq, bk, d in ((64, 64, 64), (128, 256, 64),
                                 (64, 128, 128), (128, 64, 128))]
-    return cases
+    return cases + [(f"bf16 {name}", *rest[:-1], "bfloat16")
+                    for name, *rest in cases if rest[-1] == "float32"]
 
 
-def flash_twin(cfg, D):
-    """The config with BLOCK_K halved until one block's shared memory fits
-    the H100 at head width D (the JAX blocks were sized for TPU memory)."""
+def flash_twin(cfg, D, elt_bytes=4):
+    """The config with BLOCK_K halved until one block's shared memory (of
+    the build for ``elt_bytes``-wide inputs) fits the H100 at head width D
+    (the JAX blocks were sized for TPU memory)."""
     cfg = dict(cfg)
-    while fa.smem_footprint(cfg, D) > H100_SXM.smem_per_block_optin:
+    while (fa.smem_footprint(cfg, D, elt_bytes)
+           > H100_SXM.smem_per_block_optin):
         cfg["BLOCK_K"] //= 2
     return cfg
 
@@ -859,6 +902,26 @@ def flash_bound(q, k, v):
     return (sk * U32 + 2 * ds) * v.float().abs().max().item()
 
 
+def flash_bf16_agreement(out, plain):
+    """How far a bfloat16 flash build's output lies from flash_plain's.
+
+    The two round P and the output in the same places and differ before
+    that only by float32 summation order and exp2 against exp, so an
+    element may round the other way: one ulp, at most 2^-7 of it (rtol
+    FLASH_BF16_RTOL is two).  An element whose size falls far below its
+    row's (outputs of near-uniform weights cancel) is held to 2^-7 of the
+    row's rms instead: a row that lost one key of 4096 moves by about
+    1/64 of its rms.  Rounding flips are rare, so the share of elements
+    that differ at all reads whether P was rounded where flash_plain
+    rounds it: left in float32 it moves 10-45 % of them.  Returns (share
+    of the bound used, share of elements that differ)."""
+    x, y = out.double(), plain.double()
+    rms = y.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    share = ((x - y).abs() / (FLASH_BF16_ROW_ATOL * rms
+                              + FLASH_BF16_RTOL * y.abs())).max().item()
+    return share, (x != y).double().mean().item()
+
+
 def flash_tolerance(dtype, sq, q, k, v):
     """(atol, rtol, why) for the kernel against the oracle."""
     if dtype == "bfloat16":
@@ -891,7 +954,7 @@ def phase_build_new(objs, device):
                           f"{json.dumps(f.config)} micro-tile {want[2]}: "
                           + "; ".join(ptxas_info(f)))
             else:
-                want = (fa.block_threads(f.config, f.D),
+                want = (fa.block_threads(f.config, f.D, f.dtype.itemsize),
                         fa.smem_footprint(f.config, f.D, f.dtype.itemsize))
             if f.geometry() != want:
                 raise AssertionError(f"{f.config}: built {f.geometry()}, "
@@ -939,21 +1002,47 @@ def phase_build_space(device, workers=16, stride=4, gemm_stride=4):
                              "spill")
     record["gemm_bf16"] = _build_space_gemm_bf16(device, workers,
                                                  gemm_stride)
+    record["flash_bf16"] = _build_space_flash_bf16(device, workers)
     return record
 
 
-def _sass_mnemonics(lib):
-    """How often each SASS mnemonic occurs in a built library
-    (``cuobjdump -sass``)."""
+def _sass(lib):
+    """A built library's SASS (``cuobjdump -sass``)."""
     tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+    return subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
+
+
+def _sass_mnemonics(lib):
+    """How often each SASS mnemonic occurs in a built library."""
     counts = {}
     # "/*0150*/  @!P0 HMMA.16816.F32.BF16 ...": address, predicate, opcode
     for m in re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
-                        r"([A-Z][A-Z0-9]*)", sass):
+                        r"([A-Z][A-Z0-9]*)", _sass(lib)):
         counts[m] = counts.get(m, 0) + 1
     return counts
+
+
+def sass_against(parent, source, defines_list):
+    """``source`` (a path relative to each tree's root) built from this
+    tree and from the ``parent`` tree at each set of ``-D`` defines, with
+    the port's own flags; prints whether the two SASS instruction listings
+    are the same line for line, and returns how many sets differ."""
+    roots = {"change": ROOT, "parent": os.path.abspath(parent)}
+    differ = 0
+    for defines in defines_list:
+        listings = {
+            tree: [line for line in _sass(build.build(
+                       os.path.join(root, source), defines,
+                       f"sass-{tree}")[0]).splitlines()
+                   if "/*" in line and "*/" in line]
+            for tree, root in roots.items()}
+        same = listings["change"] == listings["parent"]
+        differ += not same
+        print("[sass-against] " + json.dumps(
+            {"source": source, "defines": defines, "identical": same,
+             "lines": {t: len(v) for t, v in listings.items()}}))
+    return differ
 
 
 def _build_space_gemm_bf16(device, workers, stride, shape=(256, 256, 256)):
@@ -1021,10 +1110,74 @@ def _build_space_gemm_bf16(device, workers, stride, shape=(256, 256, 256)):
     return record
 
 
+def _build_space_flash_bf16(device, workers, main=(4096, 4096, 128),
+                            run=((2,), 512, 512)):
+    """Build every config of the bfloat16 flash space at ``main`` (causal),
+    none may spill, and each library's SASS must hold the tensor cores'
+    HMMA; launch each once at ``run`` = (lead, Sq, Sk) with the same D,
+    causal, against flash_plain (flash_bf16_agreement), with its threads
+    and shared bytes against the models."""
+    Sq, Sk, D = main
+    space = fa.FLASH_ATTENTION.make_space(
+        {"Sq": Sq, "Sk": Sk, "D": D, "causal": True, "dtype": "bfloat16"})
+    lead, rq, rk = run
+    fns = [fa.make_flash_attention(rq, rk, D, c, causal=True,
+                                   dtype=torch.bfloat16)
+           for c in space.enumerate()]
+    record = {"configs": len(fns)}
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(lambda f: f.compile(), fns))
+        record["seconds"] = time.perf_counter() - t0
+    registers, spills, bad, sass = {}, [], [], []
+    if device.type == "cuda":
+        with ThreadPoolExecutor(workers) as pool:
+            mnemonics = list(pool.map(
+                lambda f: _sass_mnemonics(build.library_path(
+                    f.build_name, f.address.split(":", 1)[1])), fns))
+    q, k, v = flash_inputs(lead, rq, rk, D, "bfloat16", device)
+    for i, fn in enumerate(fns):
+        out = fn(q, k, v)
+        sync(device)
+        share, differ = flash_bf16_agreement(
+            out, fa.flash_plain(q, k, v, fn.config))
+        if not (torch.isfinite(out.float()).all() and share <= 1.0
+                and differ <= FLASH_BF16_DIFFER):
+            bad.append({"config": fn.config, "share_plain": share,
+                        "differ_plain": differ})
+        if device.type != "cuda":
+            continue
+        want = (fa.block_threads(fn.config, D, 2),
+                fa.smem_footprint(fn.config, D, 2))
+        if fn.geometry() != want:
+            bad.append({"config": fn.config, "built": fn.geometry(),
+                        "modelled": want})
+        lines = ptxas_info(fn)
+        regs = max(int(m) for line in lines
+                   for m in re.findall(r"Used (\d+) registers", line))
+        registers[regs] = registers.get(regs, 0) + 1
+        if spill_bytes(lines):
+            spills.append({"config": fn.config, "lines": lines})
+        sass.append({"config": fn.config, "registers": regs,
+                     **{m: mnemonics[i].get(m, 0)
+                        for m in ("HMMA", "LDSM", "LDGSTS", "FFMA")}})
+    record.update(registers=dict(sorted(registers.items())),
+                  spilling=spills, bad=bad, sass=sass)
+    print("[build-space] flash bf16 " + json.dumps(record))
+    no_hmma = [r["config"] for r in sass if not r["HMMA"]]
+    if spills or bad or no_hmma:
+        raise AssertionError(f"bf16 flash builds: {len(spills)} spill, "
+                             f"{len(bad)} disagree: {bad}; no HMMA in "
+                             f"{no_hmma}")
+    return record
+
+
 def _check_row(row, kind, tag=None):
     print(f"[{tag or kind + '-sweep'}] " + json.dumps(row))
     if not (row["finite"] and row["share_plain"] <= 1.0
-            and row["share_oracle"] <= 1.0 and row.get("mean_v_ok", True)):
+            and row["share_oracle"] <= 1.0 and row.get("mean_v_ok", True)
+            and row.get("differ_plain", 0.0) <= FLASH_BF16_DIFFER):
         raise AssertionError(f"{kind} {row['case']} disagrees: {row}")
 
 
@@ -1063,7 +1216,9 @@ def phase_flash_sweep(cases, fns, big_s, device):
             out = fn(q, k, v)
             sync(device)
             plain = fa.flash_plain(q, k, v, fn.config, causal=causal)
-            oracle = fa.attention_reference(q, k, v, causal=causal)
+            # the float32 oracle of the same (bf16) inputs
+            oracle = fa.attention_reference(q.float(), k.float(), v.float(),
+                                            causal=causal)
             atol, rtol, why = flash_tolerance(dtype, sq, q, k, v)
             row = {"case": name, "config": fn.config,
                    "shape": list(lead) + [sq, sk, d], "causal": causal,
@@ -1074,6 +1229,13 @@ def phase_flash_sweep(cases, fns, big_s, device):
                    "share_plain": tol_share(out, plain, atol, rtol),
                    "share_oracle": tol_share(out, oracle, atol, rtol),
                    "tol": [atol, rtol], "tol_why": why}
+            if dtype == "bfloat16":
+                # the oracle keeps BF16_TOL; the plain version rounds where
+                # the build does, so it is held much closer
+                row["share_plain"], row["differ_plain"] = \
+                    flash_bf16_agreement(out, plain)
+                row["tol_plain"] = [FLASH_BF16_ROW_ATOL, FLASH_BF16_RTOL,
+                                    FLASH_BF16_DIFFER]
             if causal and sq > sk:
                 # rows that see no key return the mean of v
                 masked = out[..., :sq - sk, :]
@@ -1225,6 +1387,96 @@ def phase_flash_main(main, op_lead, device, budget):
     if record["op_share_oracle"] > 1.0:
         raise AssertionError(f"flash_attention() disagrees with the oracle: "
                              f"{record}")
+    return record
+
+
+def phase_flash_main_bf16(main, op_lead, device, budget, f32_winner):
+    """The flash main path in bfloat16 on the tensor cores:
+    tune_kernel(FLASH_ATTENTION) at ``main`` causal with dtype "bfloat16"
+    (every candidate held to the oracle at BF16_TOL), lookup (provenance
+    "exact" under the bfloat16 key), the float32 record at the same shape
+    still ``f32_winner``, flash_attention(config=None) on bfloat16 heads
+    ``op_lead`` in one launch against the float32 oracle (BF16_TOL) and
+    flash_plain (flash_bf16_agreement); then the winner
+    timed beside flash_plain, SDPA in bfloat16 and its bound."""
+    Sq, Sk, D = main
+    f32_shape = {"Sq": Sq, "Sk": Sk, "D": D, "causal": True}
+    shape = dict(f32_shape, dtype="bfloat16")
+    profile = device_profile(device)
+    cache = default_cache()
+    evaluator = WallClockEvaluator(atol=BF16_TOL, rtol=BF16_TOL,
+                                   device=device)
+    zero_counts()
+    t0 = time.perf_counter()
+    outcome = tune_kernel(fa.FLASH_ATTENTION, shape, strategy="annealing",
+                          budget=budget, seed=0, evaluator=evaluator,
+                          profile=profile, cache=cache)
+    tune_s = time.perf_counter() - t0
+    _check_tune(outcome, "bf16 flash")
+    best = outcome.result.best
+    res = lookup_resolved(fa.FLASH_ATTENTION, shape, profile=profile,
+                          cache=cache)
+    if res.provenance != "exact" or res.config != best.config:
+        raise AssertionError(f"bf16 flash lookup gave {res}")
+    f32 = lookup_resolved(fa.FLASH_ATTENTION, f32_shape, profile=profile,
+                          cache=cache)
+    if f32.provenance != "exact" or f32.config != f32_winner:
+        raise AssertionError(f"the float32 flash record moved: {f32}")
+    q, k, v = flash_inputs(op_lead, Sq, Sk, D, "bfloat16", device, seed=1)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v)           # config=None: the registry
+    sync(device)
+    op_launches = fa.LAUNCHES["flash_attention"] - before
+    launches = read_counts()
+    oracle = fa.attention_reference(q.float(), k.float(), v.float(),
+                                    causal=True)
+    op_share_plain, op_differ_plain = flash_bf16_agreement(
+        out, fa.flash_plain(q, k, v, res.config, causal=True))
+    stats = outcome.engine_stats or {}
+    record = {
+        "winner": best.config, "winner_ms": best.time * 1e3,
+        "evaluations": outcome.result.evaluations,
+        "failures_by_type": outcome.failure_summary.get("by_type", {}),
+        "compile_s": stats.get("compile_total_s"),
+        "compile_calls": stats.get("compile_calls"),
+        "tune_wall_s": tune_s, "lookup": res.provenance,
+        "key": fa.FLASH_ATTENTION.key_for(shape),
+        "f32_key": fa.FLASH_ATTENTION.key_for(f32_shape),
+        "f32_lookup": f32.config,
+        "op_shape": list(op_lead) + [Sq, Sk, D], "op_launches": op_launches,
+        "op_dtype": str(out.dtype), "op_err_oracle": max_err(out, oracle),
+        "op_share_oracle": tol_share(out, oracle, BF16_TOL, BF16_TOL),
+        "op_share_plain": op_share_plain, "op_differ_plain": op_differ_plain,
+        "launches": launches}
+    winner = fa.make_flash_attention(Sq, Sk, D, best.config, causal=True,
+                                     dtype=torch.bfloat16)
+    q, k, v = flash_inputs(op_lead, Sq, Sk, D, "bfloat16", device, seed=2)
+    q4, k4, v4 = (x.reshape(-1, 1, Sq, D) for x in (q, k, v))
+    rec = _time_case(
+        winner, (q, k, v),
+        lambda: fa.flash_plain(q, k, v, winner.config, causal=True),
+        lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+        device, iters=10, plain_iters=2)
+    heads = int(np.prod(op_lead)) if op_lead else 1
+    bound_ms, bound_by = _bound(
+        heads * fa.attention_flops(Sq, Sk, D, causal=True),
+        2.0 * heads * 2 * (Sq + Sk) * D,
+        peak=H100_SXM.peak_bf16_tensor_flops)
+    record.update(rec, bound_ms=bound_ms, bound_by=bound_by)
+    record["share_of_bound"] = bound_ms / record["ms"]
+    record["over_library"] = record["ms"] / record["library_ms"]
+    print("[flash-main-bf16] " + json.dumps(
+        {k: v for k, v in record.items() if not k.endswith("_runs")}))
+    record["trials"] = _trials(outcome)
+    if device.type == "cuda":
+        if op_launches != 1:
+            raise AssertionError("flash_attention() did not launch the bf16 "
+                                 "kernel once")
+        _check_launched(launches, ["flash_attention"], "[flash-main-bf16]")
+    if (out.dtype != torch.bfloat16 or record["op_share_oracle"] > 1.0
+            or op_share_plain > 1.0 or op_differ_plain > FLASH_BF16_DIFFER):
+        raise AssertionError(f"bf16 flash_attention() disagrees with the "
+                             f"oracle or its plain version: {record}")
     return record
 
 
@@ -2958,34 +3210,61 @@ def _free_port():
 
 def _child(queue, fn, args):
     """Run ``fn(*args)`` in this (spawned) process; hand back its result,
-    or its traceback."""
+    or its traceback, and the seconds it took."""
     import traceback
+    t0 = time.perf_counter()
     try:
-        queue.put(("ok", fn(*args)))
+        queue.put(("ok", fn(*args), time.perf_counter() - t0))
     except BaseException:  # noqa: BLE001 — re-raised in the parent
-        queue.put(("error", traceback.format_exc()))
+        queue.put(("error", traceback.format_exc(), time.perf_counter() - t0))
         raise
 
 
+#: spawned processes not yet collected; the script stops them on its way out
+_SPAWNED = []
+
+
+class Spawned:
+    """``fn(*args)`` started at once in a spawned process.  ``result()``
+    waits for it (``timeout_s`` from the start) and returns its value, or
+    raises with the child's traceback; ``seconds`` is then the child's own
+    time.  The process is joined, or killed past the limit."""
+
+    def __init__(self, fn, *args, timeout_s=900):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.what = (args[0] if fn is counted else fn).__name__
+        self.deadline = time.monotonic() + timeout_s
+        self.seconds = None
+        self.queue = ctx.Queue()
+        self.proc = ctx.Process(target=_child, args=(self.queue, fn, args))
+        self.proc.start()
+        _SPAWNED.append(self)
+
+    def stop(self, grace=0.0):
+        self.proc.join(timeout=grace)
+        if self.proc.is_alive():
+            self.proc.kill()
+            self.proc.join()
+        if self in _SPAWNED:
+            _SPAWNED.remove(self)
+
+    def result(self):
+        try:
+            status, value, self.seconds = self.queue.get(
+                timeout=max(1.0, self.deadline - time.monotonic()))
+        finally:
+            self.stop(grace=60)
+        if status != "ok":
+            raise AssertionError(f"{self.what} failed in its process:\n"
+                                 f"{value}")
+        return value
+
+
 def in_process(fn, *args, timeout_s=900):
-    """``fn(*args)`` in a spawned process; its result, or a raise with the
-    child's traceback.  The process is joined (killed past the limit)."""
-    import multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    queue = ctx.Queue()
-    proc = ctx.Process(target=_child, args=(queue, fn, args))
-    proc.start()
-    try:
-        status, value = queue.get(timeout=timeout_s)
-    finally:
-        proc.join(timeout=60)
-        if proc.is_alive():
-            proc.kill()
-            proc.join()
-    if status != "ok":
-        what = (args[0] if fn is counted else fn).__name__
-        raise AssertionError(f"{what} failed in its process:\n{value}")
-    return value
+    """``fn(*args)`` in a spawned process, waited for: its result, or a
+    raise with the child's traceback."""
+    return Spawned(fn, *args, timeout_s=timeout_s).result()
 
 
 def counted(fn, *args):
@@ -3115,12 +3394,13 @@ def _cell_line(rec):
             "useful_flops_ratio": rec["useful_flops_ratio"]}
 
 
-def dryrun_main(full, card_peak_bytes):
-    """[dryrun], in its own process: ``analyze_cell`` on fake worlds for
-    DRYRUN_CELLS (the card's ``cuda`` mesh type; meta shards), then a 1x1
-    fake world at [train]'s 8 x 256: its ops and bytes against
-    ``step_traffic`` (differences listed op by op), its FLOPs against
-    ``train_bound_ms``'s count, its peak against [dist]'s."""
+def dryrun_main(full):
+    """[dryrun], in its own process, on the CPU alone: ``analyze_cell`` on
+    fake worlds for DRYRUN_CELLS (the card's ``cuda`` mesh type; meta
+    shards), then a 1x1 fake world at [train]'s 8 x 256: its ops and
+    bytes against ``step_traffic`` (differences listed op by op), its
+    FLOPs against ``train_bound_ms``'s count.  Prints nothing: the parent
+    prints its lines and holds its peak to [dist]'s."""
     from repro_torch.dist import sharding
     from repro_torch.launch import dryrun
     from repro_torch.models.config import ShapeConfig
@@ -3143,10 +3423,8 @@ def dryrun_main(full, card_peak_bytes):
                 cfg=get_model_config(arch, smoke=True), rules_override=rules,
                 run=dataclasses.replace(dryrun.default_run_config(
                     arch, shape), microbatch=1))
-        line = dict(_cell_line(out), layers=(layers if full and layers
-                                            else None), rules=rules)
-        print("[dryrun] cell " + json.dumps(line), flush=True)
-        rec["cells"].append(line)
+        rec["cells"].append(dict(_cell_line(out), layers=(
+            layers if full and layers else None), rules=rules))
     deepseek = next(c for c in rec["cells"]
                     if c["arch"] == "deepseek-v3-671b")
     if full and not deepseek["collective_by_op"]["all-to-all"] > 0:
@@ -3178,11 +3456,8 @@ def dryrun_main(full, card_peak_bytes):
         "differences": diff, "flops": trace.flops,
         "bound_flops": bound_flops,
         "flops_over_bound": trace.flops / bound_flops,
-        "peak_gib": trace.peak / 2 ** 30,
-        "card_peak_gib": (card_peak_bytes / 2 ** 30 if card_peak_bytes
-                          else None)}
+        "peak_bytes": trace.peak, "peak_gib": trace.peak / 2 ** 30}
     one = rec["one_by_one"]
-    print("[dryrun] 1x1 " + json.dumps(one), flush=True)
     if diff:
         raise AssertionError(f"[dryrun] the 1x1 count differs from the "
                              f"meshless count: {diff}")
@@ -3205,13 +3480,6 @@ def dryrun_main(full, card_peak_bytes):
     if not one["flops_over_bound"] >= 1.0:
         raise AssertionError(f"[dryrun] the 1x1 FLOPs fall below "
                              f"train_bound_ms's count: {one}")
-    if card_peak_bytes:
-        rel = abs(trace.peak - card_peak_bytes) / card_peak_bytes
-        one["peak_rel_diff"] = rel
-        if not rel <= DRYRUN_PEAK_TOL:
-            raise AssertionError(f"[dryrun] 1x1 peak {one['peak_gib']:.2f} "
-                                 f"GiB against the card's "
-                                 f"{one['card_peak_gib']:.2f} GiB")
     return rec
 
 
@@ -3271,11 +3539,28 @@ def sharding_tune_main(full):
     return rec
 
 
-def phase_distribution(device, full, train_rec):
-    """[dist], [dryrun] and [sharding-tune], each in a spawned process; no
-    kernel of the four runs on them (each process reads its own counts
-    around its phase, ``counted``)."""
-    record = {}
+def collect_background(background):
+    """The results of the processes ``background`` (name -> Spawned)
+    started, waited for: each record, the seconds its process took and the
+    seconds this one waited for it."""
+    out = {}
+    for name, spawned in background.items():
+        t0 = time.perf_counter()
+        out[name] = spawned.result()
+        out[name + "_s"] = spawned.seconds
+        out[name + "_wait_s"] = time.perf_counter() - t0
+    print("[background] " + json.dumps(
+        {k: v for k, v in out.items() if k.endswith("_s")}), flush=True)
+    return out
+
+
+def phase_distribution(device, full, train_rec, collected):
+    """[dist] in a spawned process; then the lines of [dryrun] and
+    [sharding-tune], whose processes started with the script (neither
+    touches the card) and were ``collected`` (collect_background) before
+    the conv search.  No kernel of the four runs on them (each process
+    reads its own counts around its phase, ``counted``)."""
+    record = dict(collected)
     t0 = time.perf_counter()
     record["dist"] = in_process(counted, dist_main, full)
     meshless_ms = (train_rec or {}).get("full_depth", {}).get(
@@ -3284,19 +3569,25 @@ def phase_distribution(device, full, train_rec):
                                       train_meshless_ms=meshless_ms)),
           flush=True)
     record["dist_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    record["dryrun"] = in_process(counted, dryrun_main, full,
-                                  record["dist"]["mesh"]["peak_bytes"])
-    record["dryrun_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    record["sharding_tune"] = in_process(counted, sharding_tune_main, full)
+    for line in record["dryrun"]["cells"]:
+        print("[dryrun] cell " + json.dumps(line), flush=True)
+    one = record["dryrun"]["one_by_one"]
+    card_peak = record["dist"]["mesh"]["peak_bytes"]
+    one["card_peak_gib"] = card_peak / 2 ** 30 if card_peak else None
+    if card_peak:
+        one["peak_rel_diff"] = abs(one["peak_bytes"] - card_peak) / card_peak
+    print("[dryrun] 1x1 " + json.dumps(one), flush=True)
+    if card_peak and not one["peak_rel_diff"] <= DRYRUN_PEAK_TOL:
+        raise AssertionError(f"[dryrun] 1x1 peak {one['peak_gib']:.2f} GiB "
+                             f"against the card's "
+                             f"{one['card_peak_gib']:.2f} GiB")
     print("[sharding-tune] " + json.dumps(record["sharding_tune"]),
           flush=True)
-    record["sharding_tune_s"] = time.perf_counter() - t0
     record["launches"] = {k: record[k]["launches"]
                           for k in ("dist", "dryrun", "sharding_tune")}
     print("[distribution] " + json.dumps(
-        {k: record[k] for k in ("dist_s", "dryrun_s", "sharding_tune_s",
+        {k: record[k] for k in ("dist_s", "dryrun_s", "dryrun_wait_s",
+                                "sharding_tune_s", "sharding_tune_wait_s",
                                 "launches")}), flush=True)
     return record
 
@@ -3312,14 +3603,23 @@ def main(argv=None):
                          "winners (JSON), and print no result: run from a "
                          "copy of this script in another tree, it times "
                          "that tree's builds")
+    ap.add_argument("--sass-against", nargs="+",
+                    metavar="PARENT_ROOT SOURCE DEFINES",
+                    help="build SOURCE (relative to each tree's root) "
+                         "from this tree and from PARENT_ROOT at each "
+                         "DEFINES (a JSON object of -D defines; one or "
+                         "more), compare the SASS line for line, print no "
+                         "result and exit 1 if any set differs")
     args = ap.parse_args(argv)
+    if args.sass_against is not None and len(args.sass_against) < 3:
+        ap.error("--sass-against takes PARENT_ROOT SOURCE DEFINES...")
     t_main = time.perf_counter()
     if args.rehearse:
         device, main_shape, budget = torch.device("cpu"), (256, 256, 256), 6
         big, conv_main, conv_big = (128, 256), (64, 256, 3, 3), [
             (128, 256, 7, 7), (128, 256, 11, 11)]
         big_s, flash_main, flash_lead = 512, (256, 256, 64), (2, 2)
-        conv_budget, flash_budget = 6, 4
+        conv_budget, flash_budget, flash_bf16_budget = 6, 4, 4
         predict_shape, lookup_shape = (512, 512, 128), (128, 512, 512)
         online_shape = (64, 512, 256)
         bf16_shapes, bf16_budget = ((256,) * 3, (512,) * 3), 4
@@ -3327,32 +3627,44 @@ def main(argv=None):
         if not torch.cuda.is_available():
             print("chip_smoke: no CUDA device is available", file=sys.stderr)
             return 2
-        device, main_shape, budget = torch.device("cuda"), (2048,) * 3, 24
+        device, main_shape, budget = torch.device("cuda"), (2048,) * 3, 16
         # the paper's conv sizes (section V) and the flash declaration's
         # default shape; the searches' budgets are cut for the time limit
         big, conv_main, conv_big = (4096, 4096), (4096, 4096, 3, 3), [
             (8192, 4096, 7, 7), (8192, 4096, 11, 11)]
         big_s, flash_main, flash_lead = 4096, (4096, 4096, 128), (2, 8)
-        conv_budget, flash_budget = 32, 24
+        conv_budget, flash_budget, flash_bf16_budget = 24, 24, 24
         # shapes no other phase tunes
         predict_shape, lookup_shape = (4096, 4096, 1024), (1024, 4096, 4096)
         # M = 256: the heuristic's 128 x 128 tiles fill 64 of 132 SMs
         online_shape = (256, 4096, 2048)
         # the main path's shape and the next power of two
-        bf16_shapes, bf16_budget = ((2048,) * 3, (4096,) * 3), 24
+        bf16_shapes, bf16_budget = ((2048,) * 3, (4096,) * 3), 16
     tmp = tempfile.mkdtemp(prefix="chip_smoke-")
     os.environ["REPRO_TUNE_CACHE"] = os.path.join(tmp, "tuned_configs.json")
 
     smi, _ = phase_environment(device)
+    if args.sass_against:
+        parent, source, *defines = args.sass_against
+        return 1 if sass_against(parent, source,
+                                 [json.loads(d) for d in defines]) else 0
     if args.times_bf16:
         gemm_cfg, flash_cfg = (json.loads(c) for c in args.times_bf16)
         phase_sdpa_route(flash_main[0], flash_main[2], device,
                          dtype="bfloat16")
         phase_times_bf16({"f32_winner": gemm_cfg,
                           "heuristic": heuristic_config(*main_shape)},
-                         flash_cfg, (flash_lead, flash_main[0], flash_main[2]),
+                         {"given": flash_cfg},
+                         (flash_lead, flash_main[0], flash_main[2]),
                          bf16_shapes, device)
         return 0
+    # the fake-world dry-runs and the sharding search need no card: they
+    # run beside the phases below from here (the GEMM search builds one
+    # config at a time), and are collected before the conv search, whose
+    # 0.05 ms kernels they might disturb; [distribution] prints them
+    background = {name: Spawned(counted, fn, not args.rehearse)
+                  for name, fn in (("dryrun", dryrun_main),
+                                   ("sharding_tune", sharding_tune_main))}
     cases = [(name, h100_twin(cfg), shape, dtype)
              for name, cfg, shape, dtype in REFERENCE_CASES]
     fns, heur = phase_build(cases, main_shape, device)
@@ -3377,15 +3689,24 @@ def main(argv=None):
     for case in fcases:
         name, cfg, _, _, _, _, causal, dtype = case
         for _, sq, sk, d in flash_sizes(case, big_s):
+            dt = getattr(torch, dtype)
             flash_fns[(name, sq, d)] = fa.make_flash_attention(
-                sq, sk, d, flash_twin(cfg, d), causal=causal,
-                dtype=getattr(torch, dtype))
+                sq, sk, d, flash_twin(cfg, d, dt.itemsize), causal=causal,
+                dtype=dt)
     conv_heur = [cv.make_conv2d(*s, cv.heuristic_config(*s))
                  for s in [conv_main] + conv_big]
     conv_large = [cv.make_conv2d(*conv_big[-1], cfg)
                   for cfg in conv_large_configs()]
     flash_heur = fa.make_flash_attention(
         *flash_main, fa.heuristic_config(*flash_main))
+    # both flash searches' whole spaces, built with the rest at once
+    flash_spaces = [
+        fa.make_flash_attention(*flash_main, c, causal=True,
+                                dtype=getattr(torch, dtype))
+        for dtype in ("float32", "bfloat16")
+        for c in fa.FLASH_ATTENTION.make_space(dict(
+            zip(("Sq", "Sk", "D"), flash_main), causal=True,
+            dtype=dtype)).enumerate()]
     new = {"sdpa_route": sdpa_route, "sdpa_route_bf16": sdpa_route_bf16}
 
     def conv_timed():
@@ -3410,11 +3731,12 @@ def main(argv=None):
             ("build_new", lambda: phase_build_new(
                 list(conv_fns.values()) + list(conv_bf16_fns.values())
                 + conv_heur + conv_large + list(flash_fns.values())
-                + [flash_heur], device)),
+                + [flash_heur] + flash_spaces, device)),
             ("conv_sweep", lambda: phase_conv_sweep(ccases, conv_fns, big,
                                                     device)),
             ("flash_sweep", lambda: phase_flash_sweep(fcases, flash_fns,
                                                       big_s, device)),
+            ("background", lambda: collect_background(background)),
             ("conv_main", lambda: phase_conv_main(conv_main, conv_big, device,
                                                   conv_budget)),
             # after the search: timed at its best config
@@ -3422,12 +3744,16 @@ def main(argv=None):
                 ccases, conv_bf16_fns, big, device, conv_timed())),
             ("flash_main", lambda: phase_flash_main(flash_main, flash_lead,
                                                     device, flash_budget)),
-            # the float32 searches' winners and the GEMM heuristic, built
-            # in bfloat16
+            ("flash_main_bf16", lambda: phase_flash_main_bf16(
+                flash_main, flash_lead, device, flash_bf16_budget,
+                new["flash_main"]["winner"])),
+            # the GEMM float32 search's winner and heuristic config, built
+            # in bfloat16; flash with the bfloat16 and float32 winners
             ("times_bf16", lambda: phase_times_bf16(
                 {"f32_winner": main_rec["winner"],
                  "heuristic": heuristic_config(*main_shape)},
-                new["flash_main"]["winner"],
+                {"bf16_winner": new["flash_main_bf16"]["winner"],
+                 "f32_winner": new["flash_main"]["winner"]},
                 (flash_lead, flash_main[0], flash_main[2]), bf16_shapes,
                 device)),
             ("main_bf16", lambda: phase_main_bf16(main_shape, device,
@@ -3450,7 +3776,8 @@ def main(argv=None):
             ("train", lambda: phase_train(device, tmp,
                                           full=not args.rehearse)),
             ("distribution", lambda: phase_distribution(
-                device, not args.rehearse, new.get("train"))),
+                device, not args.rehearse, new.get("train"),
+                new["background"])),
             # after the searches, which build their own configurations
             ("build_space", lambda: phase_build_space(device))]:
         t0 = time.perf_counter()
@@ -3500,6 +3827,15 @@ def main(argv=None):
         "max_abs_err": bf16["max_abs_err"], "ms": bf16["ms"],
         "plain_ms": bf16["plain_ms"], "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"], "library_ms": bf16["library_ms"]})
+    fb = new["flash_main_bf16"]
+    line["kernels"].append({
+        "name": "flash_bf16", "route": "cuda",
+        "source": SOURCES["flash_attention"],
+        "replaces": REPLACES["flash_attention"],
+        "launches": fb["launches"]["flash_attention"],
+        "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
+        "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
+        "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]})
     for name, rec, label in (("conv2d", conv_rec, conv_label),
                              ("flash_attention", flash_rec, flash_label)):
         k = new["times_new"][label]
@@ -3528,4 +3864,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for spawned in list(_SPAWNED):
+            spawned.stop()
+    sys.exit(code)

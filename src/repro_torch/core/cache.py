@@ -711,10 +711,16 @@ class TuningCache:
 
     def nearest(self, kernel: str, shape: Mapping[str, Any], profile: str,
                 k: int = 3,
-                objective: "Objective | str | None" = None
+                objective: "Objective | str | None" = None,
+                defaults: Optional[Mapping[str, Any]] = None
                 ) -> List[CacheEntry]:
         """The ``k`` tuned entries for (kernel, profile) nearest to ``shape``,
         among winners tuned under the same ``objective`` only.
+
+        ``defaults`` names the value an omitted dimension stands for (the
+        kernel's ``shape_defaults``): both sides are compared with it filled
+        in, so a shape that names no ``dtype`` is no neighbour of another
+        dtype's entry.
 
         Ordered by :func:`shape_distance` (log-space over shared numeric
         dims), nearest first; an exact-shape entry sorts first with
@@ -725,9 +731,11 @@ class TuningCache:
         safe to mutate.
         """
         obj = normalize_objective(objective)
+        fill = dict(defaults or {})
+        shape = {**fill, **shape}
         scored: List[Tuple[float, str, CacheEntry]] = []
         for key, entry in self._shape_bucket(kernel, profile, obj):
-            d = shape_distance(shape, entry.shape)
+            d = shape_distance(shape, {**fill, **entry.shape})
             if math.isfinite(d):
                 scored.append((d, key, entry))
         scored.sort(key=lambda t: (t[0], t[1]))

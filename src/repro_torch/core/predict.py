@@ -249,7 +249,8 @@ class TransferPredictor:
                 else (profile or resolve_profile(self.profile).name))
         entries = self.cache.nearest(self.kernel.name, dict(shape), prof,
                                      k=self.k_nearest,
-                                     objective=self.objective)
+                                     objective=self.objective,
+                                     defaults=self.kernel.shape_defaults)
         return usable_seeds(space, [e.config for e in entries])
 
     def rank(self, configs, shape, profile):

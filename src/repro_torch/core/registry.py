@@ -125,6 +125,9 @@ class TunableKernel:
     heuristic: Callable[[Shape], Config]
     #: cache key for a shape; default joins sorted ``dim=value`` pairs
     shape_key: Optional[Callable[[Shape], str]] = None
+    #: the value an omitted shape dimension stands for, filled in on both
+    #: sides of a nearest-shape comparison (transfer, warm starts)
+    shape_defaults: Dict[str, Any] = dataclasses.field(default_factory=dict)
     #: concrete host arguments for wall-clock runs + verification
     make_args: Optional[Callable[[Shape, np.random.Generator], Tuple]] = None
     #: structural time model: (shape, config, profile) -> seconds
@@ -273,6 +276,7 @@ def resolve(kernel: "TunableKernel | str",
 def tunable(name: str, *, space: Callable[..., SearchSpace],
             heuristic: Callable[[Shape], Config],
             shape_key: Optional[Callable[[Shape], str]] = None,
+            shape_defaults: Optional[Mapping[str, Any]] = None,
             make_args: Optional[Callable] = None,
             analytical_model: Optional[Callable] = None,
             smem_footprint: Optional[Callable] = None,
@@ -296,7 +300,8 @@ def tunable(name: str, *, space: Callable[..., SearchSpace],
     def deco(build: Callable) -> TunableKernel:
         kernel = TunableKernel(
             name=name, build=build, space=space, heuristic=heuristic,
-            shape_key=shape_key, make_args=make_args,
+            shape_key=shape_key, shape_defaults=dict(shape_defaults or {}),
+            make_args=make_args,
             analytical_model=analytical_model, smem_footprint=smem_footprint,
             block_threads=block_threads, register_estimate=register_estimate,
             cost=cost, sources=tuple(sources), reference=reference,
@@ -406,7 +411,8 @@ def transfer_config(k: TunableKernel, shape: Shape, *,
     """
     profile = resolve_profile(profile)
     cache = cache if cache is not None else default_cache()
-    candidates = cache.nearest(k.name, dict(shape), profile.name, k=k_nearest)
+    candidates = cache.nearest(k.name, dict(shape), profile.name, k=k_nearest,
+                               defaults=k.shape_defaults)
     if not candidates:
         return None
     space = k.make_space(dict(shape))

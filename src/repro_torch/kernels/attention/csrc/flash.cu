@@ -1,5 +1,7 @@
 // Flash attention for Hopper (sm_90a): single-head attention with an
-// online softmax over blocks of keys, for a batch of heads.
+// online softmax over blocks of keys, for a batch of heads.  bfloat16
+// operands run on the tensor cores (mma.sync), float32 operands on the FMA
+// units.
 //
 // Replaces the Pallas TPU kernel body of the JAX package,
 // src/repro/kernels/attention/flash.py::_flash_kernel, built by
@@ -18,15 +20,65 @@
 //   BLOCK_K         keys per step of the loop over Sk
 //   PIPELINE_DEPTH  K/V stages in shared memory (cp.async ring)
 //   D               head width
-//   IN_BF16         q, k, v and the output are bfloat16 (else float32); they
-//                   are staged in shared memory as they arrive and converted
-//                   to float32 when read into registers; scores, softmax and
-//                   sums are float32 either way
+//   IN_BF16         q, k, v and the output are bfloat16 (else float32);
+//                   scores, softmax and sums are float32 either way
 //
-// What bounds it: 4*Sq*Sk*D FLOPs (half that when causal) on the float32
-// FMA units against (2*Sq + 2*Sk)*D elements of traffic a head, so FLOPs
-// bound it at any useful length.  The design keeps the FMA units fed from
-// registers, as the GEMM does:
+// Both builds stage K and V through a ring of PIPELINE_DEPTH stages filled
+// with cp.async 16-byte copies: the copy of step t + PIPELINE_DEPTH - 1 is
+// in flight while step t computes, and each step has one __syncthreads.
+//
+// The causal mask q_pos + (Sk - Sq) >= k_pos writes -1e30 exactly as the
+// TPU body does, so a row with every key masked returns the mean of v.
+// Exact causal skipping (flash.py::kv_end holds the same rule): a query
+// block whose first row sees key 0 (q0 + Sk - Sq >= 0) stops after the KV
+// block that holds its last row's last visible key,
+// k_end = min(Sk, roundup(q0 + BLOCK_Q + Sk - Sq, BLOCK_K)).  The skipped
+// blocks are fully masked and follow a real score, so each would add
+// exp(-1e30 - m) = 0 with alpha = 1: skipping them leaves the result bit
+// for bit the same.  A block with rows that see no key visits every KV
+// block, which keeps their mean-of-v answer.  The mask is applied only in
+// KV blocks that cross the diagonal, and the longest query blocks are
+// launched first (blockIdx.x reversed).  No fast-math.
+//
+// bfloat16 (IN_BF16): FlashAttention-2 on mma.sync, the tensor-core route
+// of the GEMM's bfloat16 build.  The work is 4*Sq*Sk*D operations (half
+// when causal) at the H100's 989 TFLOP/s bfloat16 rate against
+// (2*Sq + 2*Sk)*D*2 bytes a head, so operations bound it.
+//
+// * Warps own rows (flash.py::geometry): each of the BLOCK_Q / 16 warps
+//   owns 16 query rows.  Per 16 dims of d it loads its Q rows with ldmatrix
+//   (reloaded every KV step, which keeps registers for the scores) and the
+//   block's K rows with ldmatrix: stored [key][d], K is already the .col
+//   operand.  S = Q K^T comes out of
+//   mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32 as float32 fragments,
+//   BLOCK_K / 8 tiles of 16 x 8 a warp.
+// * The softmax works on those fragments.  A lane holds two rows (lane / 4
+//   and lane / 4 + 8) and two adjacent keys of each n8 tile; each row's
+//   max is reduced over its quad with two shuffles, its sum kept a lane
+//   and reduced the same way once, at the end.  Scores are
+//   scaled by scale * log2(e) and exponentiated with exp2f, so m is kept in
+//   base 2; m, l and alpha are float32.
+// * P stays in registers: the float32 score fragments of two adjacent n8
+//   tiles, rounded to bfloat16 in pairs, are the A operand of the next
+//   mma (a C fragment's layout is an A fragment's).  O += P V reads V,
+//   stored [key][d], with ldmatrix.trans; O accumulates in float32
+//   fragments, 16 x D a warp.  l sums the float32 weights.
+// * Q, K and V rows are padded by 16 bytes, so the 8 rows one ldmatrix
+//   reads fall on 8 distinct 16-byte bank groups (D a multiple of 16).
+//   There is no P buffer.
+// * Not yet: wgmma, TMA, warp specialisation.
+//
+// The one numerical difference from the TPU body (and from the float32
+// build): P is rounded to bfloat16 before P V, as SDPA's bfloat16 route
+// and FlashAttention do, where the JAX kernel keeps p in float32.  Each
+// weight moves by at most 2^-9 relative, so the output moves by at most
+// 2^-9 * max|v|, the size of the bfloat16 output's own rounding.
+// flash.py::flash_plain rounds P at the same point for bfloat16 inputs.
+//
+// float32: the FMA route.  4*Sq*Sk*D FLOPs (half that when causal) on the
+// float32 FMA units against (2*Sq + 2*Sk)*D elements of traffic a head, so
+// FLOPs bound it at any useful length.  The design keeps the FMA units fed
+// from registers, as the GEMM does:
 //
 // * Thread geometry (flash.py::geometry predicts it): TK threads share a
 //   group of TM query rows, TK = min(BLOCK_K/4, 32, D/4), TM = 8 when
@@ -37,32 +89,15 @@
 //   and sum with shuffles.
 // * Q and K are staged row-major with 16 bytes of pad a row, so a thread
 //   reads 16 bytes of one row for 16 bytes of d: per 16 bytes of d it does
-//   TM + TN loads for TM*TN*(16/elem) FMAs, and the eight lanes of a
-//   quarter-warp fall on eight different bank groups.  Each score is a
-//   sequential sum over d, scaled afterwards.
+//   TM + TN loads for TM*TN*4 FMAs, and the eight lanes of a quarter-warp
+//   fall on eight different bank groups.  Each score is a sequential sum
+//   over d, scaled afterwards.
 // * The scores stay in registers for the max and the exponentials; P is
 //   written once to shared memory, read back by the same warp (a __syncwarp,
 //   no block barrier) 16 bytes at a time, and O += P V accumulates in
 //   registers, a sequential sum over keys, with 16-byte reads of V.
-// * K and V arrive through a ring of PIPELINE_DEPTH stages filled with
-//   cp.async 16-byte copies: the copy of step t + PIPELINE_DEPTH - 1 is in
-//   flight while step t computes, and each step has one __syncthreads.
-//
-// The causal mask q_pos + (Sk - Sq) >= k_pos writes -1e30 exactly as the
-// TPU body does, so a row with every key masked returns the mean of v.
-// Exact causal skipping (flash.py::kv_end holds the same rule): a query
-// block whose first row sees key 0 (q0 + Sk - Sq >= 0) stops after the KV
-// block that holds its last row's last visible key,
-// k_end = min(Sk, roundup(q0 + BLOCK_Q + Sk - Sq, BLOCK_K)).  The skipped
-// blocks are fully masked and follow a real score, so each would add
-// exp(-1e30 - m) = 0 with alpha = 1: skipping them leaves the float32 result
-// bit for bit the same.  A block with rows that see no key visits every KV
-// block, which keeps their mean-of-v answer.  The mask is applied only in
-// KV blocks that cross the diagonal, and the longest query blocks are
-// launched first (blockIdx.x reversed).  expf, not __expf, and no fast-math.
-//
-// No tensor cores: TF32 keeps about three digits, and a split-TF32
-// (3xTF32) design on mma/wgmma is later work.
+// * expf, not __expf.  No tensor cores: TF32 keeps about three digits,
+//   and a split-TF32 (3xTF32) design on mma/wgmma is later work.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -77,39 +112,14 @@
 #define PIPELINE_DEPTH 2
 #endif
 
-#if IN_BF16
-typedef __nv_bfloat16 elem_t;
-__device__ __forceinline__ elem_t from_f32(float x) { return __float2bfloat16_rn(x); }
-#else
-typedef float elem_t;
-__device__ __forceinline__ elem_t from_f32(float x) { return x; }
-#endif
-
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
 constexpr int BQ = BLOCK_Q;
 constexpr int BK = BLOCK_K;
 constexpr int STAGES = PIPELINE_DEPTH;
-constexpr int TM = BQ >= 128 ? 8 : 4;            // query rows a thread
-constexpr int TK = cmin(cmin(BK / 4, 32), D / 4); // threads sharing the rows
-constexpr int TN = BK / TK;                       // keys a thread
-constexpr int TD = D / TK;                        // output dims a thread
-constexpr int GROUPS = BQ / TM;
-constexpr int NTHREADS = GROUPS * TK;
-constexpr int ESZ = (int)sizeof(elem_t);
-constexpr int VEC = 16 / ESZ;                     // elements in 16 bytes
-constexpr int QK_STRIDE = D + VEC;                // Q and K rows: 16 B pad
-constexpr int P_STRIDE = BK + 4;                  // P rows (float32)
-constexpr int SMEM_BYTES = BQ * P_STRIDE * 4
-    + (BQ * QK_STRIDE + STAGES * BK * (QK_STRIDE + D)) * ESZ;
 constexpr float NEG = -1e30f;
 
 static_assert(STAGES >= 2, "at least two K/V stages");
-static_assert(TK >= 1 && 32 % TK == 0, "a row group lies in one warp");
-static_assert(BQ % TM == 0 && BK % TK == 0, "blocks divide the tiles");
-static_assert(TD % 4 == 0 && D % VEC == 0, "D a multiple of 4 * TK");
-static_assert(NTHREADS % 32 == 0, "whole warps");
-static_assert(NTHREADS <= 512, "at most 512 threads per block");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -126,34 +136,273 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
-// VEC elements (16 bytes) of shared memory as float32
-__device__ __forceinline__ void load_vec(const elem_t* p, float (&out)[VEC]) {
 #if IN_BF16
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const unsigned w[4] = {raw.x, raw.y, raw.z, raw.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        out[2 * i] = __uint_as_float(w[i] << 16);
-        out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync on the tensor cores
+// ---------------------------------------------------------------------------
+
+typedef __nv_bfloat16 elem_t;
+
+constexpr int WARPS = BQ / 16;                    // 16 query rows a warp
+constexpr int NTHREADS = 32 * WARPS;
+constexpr int VEC = 8;                            // elements in 16 bytes
+constexpr int STRIDE = D + VEC;                   // Q, K, V rows: 16 B pad
+constexpr int NT = BK / 8;                        // n8 tiles of scores
+constexpr int DT = D / 8;                         // n8 tiles of the output
+constexpr int SMEM_BYTES = (BQ + 2 * STAGES * BK) * STRIDE * 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+static_assert(BQ % 16 == 0 && BK % 16 == 0 && D % 16 == 0,
+              "BLOCK_Q, BLOCK_K and D must be multiples of 16 (mma tiles)");
+static_assert(NTHREADS <= 512, "at most 512 threads per block");
+
+// cp.async of ROWS rows of D elements into shared rows of STRIDE elements
+template <int ROWS>
+__device__ __forceinline__ void copy_rows(elem_t* dst, const elem_t* src,
+                                          int tid) {
+    constexpr int CPR = D / VEC;                  // 16-byte chunks a row
+    for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
+        const int r = i / CPR, c = i % CPR;
+        cp_async16(dst + r * STRIDE + c * VEC, src + (size_t)r * D + c * VEC);
     }
-#else
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-#endif
 }
 
-// 4 elements (16 or 8 bytes) of shared memory as float32
-__device__ __forceinline__ void load4(const elem_t* p, float* out) {
-#if IN_BF16
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    out[0] = __uint_as_float(raw.x << 16);
-    out[1] = __uint_as_float(raw.x & 0xffff0000u);
-    out[2] = __uint_as_float(raw.y << 16);
-    out[3] = __uint_as_float(raw.y & 0xffff0000u);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+    return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const elem_t* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const elem_t* p) {
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), float32 accumulator
+__device__ __forceinline__ void mma_k16(float (&d)[4], const unsigned (&a)[4],
+                                        unsigned b0, unsigned b1) {
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two float32 values as one bfloat16 pair, lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const unsigned*>(&h);
+}
+
+__global__ void __launch_bounds__(NTHREADS)
+flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
+             const elem_t* __restrict__ v, elem_t* __restrict__ o,
+             int Sq, int Sk, int causal, float scale) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    elem_t* Qs = reinterpret_cast<elem_t*>(smem_raw);  // [BQ][STRIDE]
+    elem_t* Ks = Qs + BQ * STRIDE;              // [STAGES][BK][STRIDE]
+    elem_t* Vs = Ks + STAGES * BK * STRIDE;     // [STAGES][BK][STRIDE]
+
+    // the longest query blocks (the last ones, when causal) start first
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+    const size_t head = blockIdx.y;
+    q += (head * Sq + q0) * D;
+    o += (head * Sq + q0) * D;
+    k += head * Sk * D;
+    v += head * Sk * D;
+
+    const int tid = threadIdx.x;
+    const int lane = tid & 31, warp = tid >> 5;
+    const int shift = Sk - Sq;               // query ends align with KV end
+    int k_end = Sk;                          // the rule of flash.py::kv_end
+    if (causal && q0 + shift >= 0)
+        k_end = min(Sk, (q0 + BQ + shift + BK - 1) / BK * BK);
+    const int nkv = k_end / BK;
+
+    copy_rows<BQ>(Qs, q, tid);
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+        if (s < nkv) {
+            copy_rows<BK>(Ks + s * BK * STRIDE, k + (size_t)s * BK * D, tid);
+            copy_rows<BK>(Vs + s * BK * STRIDE, v + (size_t)s * BK * D, tid);
+        }
+        cp_async_commit();
+    }
+
+    // this lane's rows of the warp's 16 (g and g + 8) and its two columns
+    // of each n8 tile (c2 and c2 + 1)
+    const int r0 = warp * 16, g = lane >> 2, c2 = 2 * (lane & 3);
+    const int qpos = q0 + r0 + g + shift;
+    const float scale2 = scale * LOG2E;
+    float m[2] = {NEG, NEG}, l[2] = {0.f, 0.f};
+    float acc[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    // ldmatrix row addresses: Q's A fragment (rows lane % 16, d chunk
+    // lane / 16), K's B fragments (keys (lane / 16) * 8 + lane % 8, d chunk
+    // (lane / 8) % 2), V's transposed B fragments (keys ((lane / 8) % 2) * 8
+    // + lane % 8, d chunk lane / 16)
+    const elem_t* qa = Qs + (r0 + (lane & 15)) * STRIDE + (lane >> 4) * 8;
+    const int k_off = (((lane >> 4) << 3) + (lane & 7)) * STRIDE
+                      + ((lane >> 3) & 1) * 8;
+    const int v_off = ((((lane >> 3) & 1) << 3) + (lane & 7)) * STRIDE
+                      + (lane >> 4) * 8;
+
+    for (int t = 0; t < nkv; ++t) {
+        cp_async_wait<STAGES - 2>();         // step t's K and V have landed
+        __syncthreads();                     // ... for all; stage t-1 is free
+        {
+            const int nt = t + STAGES - 1;
+            if (nt < nkv) {
+                const int b = nt % STAGES;
+                copy_rows<BK>(Ks + b * BK * STRIDE, k + (size_t)nt * BK * D,
+                              tid);
+                copy_rows<BK>(Vs + b * BK * STRIDE, v + (size_t)nt * BK * D,
+                              tid);
+            }
+            cp_async_commit();
+        }
+        const elem_t* Kt = Ks + (t % STAGES) * BK * STRIDE;
+        const elem_t* Vt = Vs + (t % STAGES) * BK * STRIDE;
+        const int k0 = t * BK;
+
+        // S = Q K^T: the warp's 16 rows x BK keys
+        float s[NT][4];
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < D; kk += 16) {
+            unsigned a[4];
+            ldsm_x4(a, qa + kk);
+#pragma unroll
+            for (int np = 0; np < NT / 2; ++np) {
+                unsigned b[4];
+                ldsm_x4(b, Kt + np * 16 * STRIDE + k_off + kk);
+                mma_k16(s[2 * np], a, b[0], b[1]);
+                mma_k16(s[2 * np + 1], a, b[2], b[3]);
+            }
+        }
+
+        // mask only where the KV block crosses the diagonal; element e of
+        // tile j is row g + 8 (e / 2), key k0 + 8 j + c2 + e % 2
+        const bool masked = causal && k0 + BK - 1 > q0 + shift;
+        float mc[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                float x = s[j][e] * scale2;
+                if (masked && qpos + 8 * (e >> 1) < k0 + 8 * j + c2 + (e & 1))
+                    x = NEG;
+                s[j][e] = x;
+                mc[e >> 1] = fmaxf(mc[e >> 1], x);
+            }
+        float alpha[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+            mc[h] = fmaxf(mc[h], __shfl_xor_sync(0xffffffffu, mc[h], 1));
+            mc[h] = fmaxf(mc[h], __shfl_xor_sync(0xffffffffu, mc[h], 2));
+            const float m_new = fmaxf(m[h], mc[h]);
+            alpha[h] = exp2f(m[h] - m_new);
+            m[h] = m_new;
+            l[h] *= alpha[h];
+        }
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = exp2f(s[j][e] - m[e >> 1]);
+                s[j][e] = p;
+                l[e >> 1] += p;
+            }
+#pragma unroll
+        for (int j = 0; j < DT; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+        // O += P V: P's A fragment for keys 16 kt .. 16 kt + 15 is the
+        // score tiles 2 kt and 2 kt + 1, rounded to bfloat16
+#pragma unroll
+        for (int kt = 0; kt < BK / 16; ++kt) {
+            const unsigned a[4] = {
+                pack_bf16(s[2 * kt][0], s[2 * kt][1]),
+                pack_bf16(s[2 * kt][2], s[2 * kt][3]),
+                pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
+                pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
+#pragma unroll
+            for (int dp = 0; dp < D / 16; ++dp) {
+                unsigned b[4];
+                ldsm_x4_t(b, Vt + kt * 16 * STRIDE + v_off + dp * 16);
+                mma_k16(acc[2 * dp], a, b[0], b[1]);
+                mma_k16(acc[2 * dp + 1], a, b[2], b[3]);
+            }
+        }
+    }
+
+    // each row's sum over its quad, then one bfloat16 pair a store
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+        l[h] = fmaxf(l[h], 1e-30f);
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<__nv_bfloat162*>(
+                o + (size_t)(r0 + g + 8 * h) * D + 8 * j + c2) =
+                __floats2bfloat162_rn(acc[j][2 * h] / l[h],
+                                      acc[j][2 * h + 1] / l[h]);
+}
+
 #else
+// ---------------------------------------------------------------------------
+// float32: register tiles on the FMA units
+// ---------------------------------------------------------------------------
+
+typedef float elem_t;
+__device__ __forceinline__ elem_t from_f32(float x) { return x; }
+
+constexpr int TM = BQ >= 128 ? 8 : 4;            // query rows a thread
+constexpr int TK = cmin(cmin(BK / 4, 32), D / 4); // threads sharing the rows
+constexpr int TN = BK / TK;                       // keys a thread
+constexpr int TD = D / TK;                        // output dims a thread
+constexpr int GROUPS = BQ / TM;
+constexpr int NTHREADS = GROUPS * TK;
+constexpr int ESZ = (int)sizeof(elem_t);
+constexpr int VEC = 16 / ESZ;                     // elements in 16 bytes
+constexpr int QK_STRIDE = D + VEC;                // Q and K rows: 16 B pad
+constexpr int P_STRIDE = BK + 4;                  // P rows (float32)
+constexpr int SMEM_BYTES = BQ * P_STRIDE * 4
+    + (BQ * QK_STRIDE + STAGES * BK * (QK_STRIDE + D)) * ESZ;
+
+static_assert(TK >= 1 && 32 % TK == 0, "a row group lies in one warp");
+static_assert(BQ % TM == 0 && BK % TK == 0, "blocks divide the tiles");
+static_assert(TD % 4 == 0 && D % VEC == 0, "D a multiple of 4 * TK");
+static_assert(NTHREADS % 32 == 0, "whole warps");
+static_assert(NTHREADS <= 512, "at most 512 threads per block");
+
+// VEC elements (16 bytes) of shared memory
+__device__ __forceinline__ void load_vec(const elem_t* p, float (&out)[VEC]) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-#endif
+}
+
+// 4 elements (16 bytes) of shared memory
+__device__ __forceinline__ void load4(const elem_t* p, float* out) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
 }
 
 // cp.async of ROWS rows of D elements into shared rows of STRIDE elements
@@ -335,6 +584,7 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
                 orow[g * 4 * TK + e] = from_f32(acc[i][4 * g + e] / denom);
     }
 }
+#endif
 
 extern "C" {
 

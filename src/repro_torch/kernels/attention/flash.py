@@ -15,12 +15,21 @@ Tunables (the JAX package's names; values re-derived for the card in
                       while the block computes on an earlier stage
   (causal, scale are static problem properties, not tunables)
 
-The kernel is float32 FMA work bound by FLOPs.  Each thread keeps a
-TM x TN tile of the scores and a TM x TD tile of the output in registers
-(:func:`geometry`); TK threads share a row group and reduce its max and
-sum with shuffles.  One block's shared memory holds the Q tile, the K/V
-ring and the probabilities P (:func:`smem_footprint`); Q, K and V are
-staged in their input type, P in float32.
+One build per input type, each bound by its multiplications
+(:func:`geometry`, :func:`smem_footprint` and :func:`register_estimate`
+take the element width and describe that build):
+
+* float32: FMA work.  Each thread keeps a TM x TN tile of the scores and
+  a TM x TD tile of the output in registers; TK threads share a row group
+  and reduce its max and sum with shuffles.  One block's shared memory
+  holds the Q tile, the K/V ring and the probabilities P (float32).
+* bfloat16: the tensor cores (``mma.sync``), FlashAttention-2 style.
+  Each of BLOCK_Q / 16 warps owns 16 query rows; scores and output are
+  float32 fragments in registers, and P stays there, rounded to bfloat16
+  as the next product's operand.  Shared memory holds Q and the K/V ring,
+  rows padded by 16 bytes; there is no P buffer.  P's rounding is the one
+  numerical difference from the JAX kernel, which keeps p in float32:
+  :func:`flash_plain` rounds at the same point for bfloat16 inputs.
 
 Causal blocks are skipped exactly: a query block whose first row sees key
 0 stops after the KV block holding its last row's last visible key
@@ -79,37 +88,53 @@ def _merged(config: Optional[Config]) -> Config:
     return cfg
 
 
-def geometry(config: Config, D: int) -> Dict[str, int]:
-    """The thread geometry the build derives (``csrc/flash.cu``).
+def geometry(config: Config, D: int, elt_bytes: int = 4) -> Dict[str, int]:
+    """The thread geometry the build for ``elt_bytes``-wide inputs derives
+    (``csrc/flash.cu``).
 
-    TM query rows a thread (8 when BLOCK_Q >= 128, else 4); TK threads
-    share them, TK = min(BLOCK_K/4, 32, D/4); each thread owns TN =
-    BLOCK_K/TK keys of the scores and TD = D/TK dims of the output."""
+    float32: TM query rows a thread (8 when BLOCK_Q >= 128, else 4); TK
+    threads share them, TK = min(BLOCK_K/4, 32, D/4); each thread owns TN
+    = BLOCK_K/TK keys of the scores and TD = D/TK dims of the output.
+    bfloat16: each of WARPS = BLOCK_Q/16 warps owns 16 query rows as NT =
+    BLOCK_K/8 score tiles and DT = D/8 output tiles of 16 x 8 (float32
+    mma fragments)."""
     bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
+    if elt_bytes == 2:
+        warps = max(1, bq // 16)
+        return {"WARPS": warps, "NT": bk // 8, "DT": D // 8,
+                "threads": 32 * warps}
     tm = 8 if bq >= 128 else 4
     tk = max(1, min(bk // 4, 32, D // 4))
     return {"TM": tm, "TK": tk, "TN": bk // tk, "TD": D // tk,
             "threads": (bq // tm) * tk}
 
 
-def block_threads(config: Config, D: int) -> int:
-    return geometry(config, D)["threads"]
+def block_threads(config: Config, D: int, elt_bytes: int = 4) -> int:
+    return geometry(config, D, elt_bytes)["threads"]
 
 
-def register_estimate(config: Config, D: int) -> int:
-    """32-bit registers a thread needs, roughly: the score and output tiles,
-    m and l, one K vector a key and 32 for addresses and loop state."""
-    g = geometry(config, D)
+def register_estimate(config: Config, D: int, elt_bytes: int = 4) -> int:
+    """32-bit registers a thread needs, roughly.  float32: the score and
+    output tiles, m and l, one K vector a key and 32 for addresses and
+    loop state.  bfloat16: the score and output fragments (BLOCK_K/2 and
+    D/2 floats a lane) and 64 for the Q, K, V and P fragments of one
+    product, m and l of two rows, addresses and loop state."""
+    g = geometry(config, D, elt_bytes)
+    if elt_bytes == 2:
+        return 4 * (g["NT"] + g["DT"]) + 64
     return g["TM"] * (g["TN"] + g["TD"] + 2) + 4 * g["TN"] + 32
 
 
 def smem_footprint(config: Config, D: int, elt_bytes: int = 4) -> int:
-    """Bytes of shared memory one block claims: P (BLOCK_Q x BLOCK_K
-    float32, rows padded by 4), Q, and PIPELINE_DEPTH stages of K and V in
-    the input type (Q and K rows padded by 16 bytes)."""
+    """Bytes of shared memory one block claims.  float32: P (BLOCK_Q x
+    BLOCK_K, rows padded by 4), Q, and PIPELINE_DEPTH stages of K and V (Q
+    and K rows padded by 16 bytes).  bfloat16: Q and PIPELINE_DEPTH stages
+    of K and V, every row padded by 16 bytes; no P."""
     bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
     depth = int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
     qk_row = D * elt_bytes + 16
+    if elt_bytes == 2:
+        return (bq + 2 * depth * bk) * qk_row
     return (4 * bq * (bk + 4) + bq * qk_row
             + depth * bk * (qk_row + D * elt_bytes))
 
@@ -130,15 +155,22 @@ def kv_end(q0: int, config: Config, Sq: int, Sk: int,
     return min(Sk, -(-(q0 + bq + shift) // bk) * bk)
 
 
-def validate_config(config: Config, Sq: int, Sk: int, D: int) -> None:
+def validate_config(config: Config, Sq: int, Sk: int, D: int,
+                    elt_bytes: int = 4) -> None:
+    """Raise ``ValueError`` on what the build for ``elt_bytes``-wide
+    inputs cannot tile."""
     bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
     if Sq % bq or Sk % bk:
         raise ValueError(f"({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
     depth = int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
     if depth < 2:
         raise ValueError(f"PIPELINE_DEPTH={depth}: the ring needs 2 stages")
-    g = geometry(config, D)
-    if (bk % 4 or D % 8 or bq % g["TM"] or D % (4 * g["TK"])
+    g = geometry(config, D, elt_bytes)
+    if elt_bytes == 2:
+        if bq % 16 or bk % 16 or D % 16:
+            raise ValueError(f"the bfloat16 build takes blocks ({bq},{bk}) "
+                             f"and D={D} in multiples of 16 (mma tiles)")
+    elif (bk % 4 or D % 8 or bq % g["TM"] or D % (4 * g["TK"])
             or 32 % g["TK"]):
         raise ValueError(f"blocks ({bq},{bk}) at D={D} do not tile into "
                          f"the kernel's {g} geometry")
@@ -164,7 +196,9 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     The keys are walked in BLOCK_K steps; every query row keeps a running
     max m (initialised to -1e30), normaliser l and float32 accumulator acc;
-    the result is acc / max(l, 1e-30) in q's dtype.  Query blocks are
+    the result is acc / max(l, 1e-30) in q's dtype.  For bfloat16 inputs
+    the weights P are rounded to bfloat16 before P V, where the bfloat16
+    build rounds them (l sums them unrounded, as there).  Query blocks are
     independent, so all rows go at once.  q: (..., Sq, D), k/v: (..., Sk, D).
     """
     cfg = _merged(config)
@@ -188,6 +222,8 @@ def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
+        if q.dtype == torch.bfloat16:
+            p = p.to(torch.bfloat16).to(torch.float32)
         acc = acc * alpha + p @ vf[..., k0:k0 + bk, :]
         m = m_new
     return (acc / l.clamp_min(1e-30)).to(q.dtype)
@@ -210,10 +246,10 @@ class FlashAttention:
                  causal: bool = True, scale: Optional[float] = None,
                  dtype: torch.dtype = torch.float32):
         cfg = _merged(config)
-        validate_config(cfg, Sq, Sk, D)
         if dtype not in DTYPES.values():
             raise ValueError(f"flash attention takes float32 or bfloat16, "
                              f"not {dtype}")
+        validate_config(cfg, Sq, Sk, D, dtype.itemsize)
         self.Sq, self.Sk, self.D = Sq, Sk, D
         self.config = cfg
         self.causal = bool(causal)
@@ -331,28 +367,34 @@ def kv_steps(config: Config, Sq: int, Sk: int, causal: bool = True) -> int:
 def analytical_time(config: Config, profile: DeviceProfile,
                     Sq: int, Sk: int, D: int, elt_bytes: int = 4, *,
                     causal: bool = True) -> float:
-    """max(FMA time, byte time) + per-step overhead, for searches without
-    a card; it makes no claim about the kernel's time.
+    """max(compute time, byte time) + per-step overhead, for searches
+    without a card; it makes no claim about the kernel's time.
 
     Both count the KV blocks the kernel visits (:func:`kv_steps`), so a
-    causal problem costs about half a full one.  Past the shared-memory,
-    thread or register limits the config is infeasible (``math.inf``).
-    PIPELINE_DEPTH only scales how well bytes overlap the FMAs.
+    causal problem costs about half a full one.  The compute rate is that
+    of the units the build multiplies on: a share of the float32 FMA peak
+    for 4-byte inputs, the bfloat16 tensor-core peak for 2-byte ones.  Past
+    the shared-memory, thread or register limits of the build for
+    ``elt_bytes`` the config is infeasible (``math.inf``).
+    PIPELINE_DEPTH only scales how well bytes overlap the products.
     """
     cfg = _merged(config)
     bq, bk = cfg["BLOCK_Q"], cfg["BLOCK_K"]
     try:
-        validate_config(cfg, Sq, Sk, D)
+        validate_config(cfg, Sq, Sk, D, elt_bytes)
     except ValueError:
         return math.inf
-    threads = block_threads(cfg, D)
+    threads = block_threads(cfg, D, elt_bytes)
     smem = smem_footprint(cfg, D, elt_bytes)
-    if (not profile.fits_smem(smem) or register_estimate(cfg, D)
+    if (not profile.fits_smem(smem) or register_estimate(cfg, D, elt_bytes)
             > min(255, profile.regs_per_sm // threads)):
         return math.inf
     steps = kv_steps(cfg, Sq, Sk, causal)
     flops = 4.0 * steps * bq * bk * D
-    compute_t = flops / (FMA_EFFICIENCY * profile.peak_f32_flops)
+    if elt_bytes == 2:
+        compute_t = flops / profile.peak_bf16_tensor_flops
+    else:
+        compute_t = flops / (FMA_EFFICIENCY * profile.peak_f32_flops)
     blocks = Sq // bq
     traffic = (2 * Sq * D + steps * 2 * bk * D) * elt_bytes
     overlap = {2: 1.0, 3: 0.97}.get(int(cfg.get("PIPELINE_DEPTH", 2)), 1.0)
@@ -376,7 +418,7 @@ def traffic(config: Config, Sq: int, Sk: int, D: int, *,
     ``ValueError``.
     """
     cfg = _merged(config)
-    validate_config(cfg, Sq, Sk, D)
+    validate_config(cfg, Sq, Sk, D, elt_bytes)
     kv_rows = sum(kv_end(q0, cfg, Sq, Sk, causal)
                   for q0 in range(0, Sq, cfg["BLOCK_Q"]))
     nbytes = elt_bytes * (2 * Sq * D + 2 * kv_rows * D)

@@ -10,7 +10,9 @@ block has 227 KB of shared memory and 65,536 registers.  The kernel's
 geometry (whole warps, 128 to 512 threads), its register estimate and
 its shared memory with PIPELINE_DEPTH K/V stages are constraints of the
 space (paper section III-A), so an infeasible config is pruned and never
-a failed launch.
+a failed launch.  Each input type has its own build, so a shape's
+``dtype`` picks the constraints, and a bfloat16 shape has a key of its
+own (``shape_key``; the float32 key stays the JAX package's).
 """
 
 from __future__ import annotations
@@ -39,12 +41,26 @@ BLOCK_K = (16, 32, 64, 128, 256)
 MIN_THREADS = 128
 
 
-def _shape(Sq: int, Sk: int, D: int, causal: bool = True) -> Dict[str, Any]:
-    return {"Sq": Sq, "Sk": Sk, "D": D, "causal": bool(causal)}
+def _dtype_name(dtype: "torch.dtype | str") -> str:
+    return str(dtype).removeprefix("torch.")
 
 
-def shape_key(Sq: int, Sk: int, D: int, causal: bool = True) -> str:
-    return f"Sq{Sq}_Sk{Sk}_D{D}_{'c' if causal else 'f'}"
+def _shape(Sq: int, Sk: int, D: int, causal: bool = True,
+           dtype: "torch.dtype | str" = "float32") -> Dict[str, Any]:
+    """The declaration's shape; a float32 one names no dtype, as the JAX
+    package's shapes do."""
+    shape = {"Sq": Sq, "Sk": Sk, "D": D, "causal": bool(causal)}
+    if _dtype_name(dtype) != "float32":
+        shape["dtype"] = _dtype_name(dtype)
+    return shape
+
+
+def shape_key(Sq: int, Sk: int, D: int, causal: bool = True,
+              dtype: "torch.dtype | str" = "float32") -> str:
+    """The JAX package's key; a bfloat16 shape appends ``_bfloat16``, since
+    its build (and winner) is another than the float32 one's."""
+    key = f"Sq{Sq}_Sk{Sk}_D{D}_{'c' if causal else 'f'}"
+    return key + ("_bfloat16" if _dtype_name(dtype) == "bfloat16" else "")
 
 
 def heuristic_config(Sq: int, Sk: int, D: int = 128) -> Dict[str, Any]:
@@ -67,17 +83,19 @@ def heuristic_config(Sq: int, Sk: int, D: int = 128) -> Dict[str, Any]:
     return cfg
 
 
-def kernel_takes(bq: int, bk: int, D: int) -> bool:
-    """Whether the blocks tile into the kernel's thread geometry at D."""
+def kernel_takes(bq: int, bk: int, D: int, elt_bytes: int = 4) -> bool:
+    """Whether the blocks tile into the thread geometry of the build for
+    ``elt_bytes``-wide inputs at D."""
     try:
-        validate_config({"BLOCK_Q": bq, "BLOCK_K": bk}, bq, bk, D)
+        validate_config({"BLOCK_Q": bq, "BLOCK_K": bk}, bq, bk, D, elt_bytes)
     except ValueError:
         return False
     return True
 
 
-def tuning_space(D: int = 128):
-    """(values, constraints) of the H100 space at head width ``D``."""
+def tuning_space(D: int = 128, elt_bytes: int = 4):
+    """(values, constraints) of the H100 space at head width ``D`` for the
+    build of ``elt_bytes``-wide inputs."""
     params = {
         "BLOCK_Q": BLOCK_Q,
         "BLOCK_K": BLOCK_K,
@@ -85,10 +103,12 @@ def tuning_space(D: int = 128):
     }
     def registers_fit(bq, bk):
         cfg = {"BLOCK_Q": bq, "BLOCK_K": bk}
-        return register_estimate(cfg, D) <= min(
-            255, H100_SXM.regs_per_sm // block_threads(cfg, D))
+        return register_estimate(cfg, D, elt_bytes) <= min(
+            255, H100_SXM.regs_per_sm // block_threads(cfg, D, elt_bytes))
+    staged = "Q, P" if elt_bytes == 4 else "Q"
     constraints = [
-        (lambda bq, bk: kernel_takes(bq, bk, D), ("BLOCK_Q", "BLOCK_K"),
+        (lambda bq, bk: kernel_takes(bq, bk, D, elt_bytes),
+         ("BLOCK_Q", "BLOCK_K"),
          "whole warps, at most 512 threads per block"),
         (registers_fit, ("BLOCK_Q", "BLOCK_K"),
          "the score and output tiles fit the registers"),
@@ -96,20 +116,23 @@ def tuning_space(D: int = 128):
         # of fewer than four warps leaves SM schedulers idle (on many heads
         # such blocks ran 2x slower than the best, though one head with
         # more, smaller blocks may time faster)
-        (lambda bq, bk: block_threads({"BLOCK_Q": bq, "BLOCK_K": bk}, D)
+        (lambda bq, bk: block_threads({"BLOCK_Q": bq, "BLOCK_K": bk}, D,
+                                      elt_bytes)
          >= MIN_THREADS, ("BLOCK_Q", "BLOCK_K"),
          "at least four warps a block"),
         (lambda bq, bk, depth: H100_SXM.fits_smem(smem_footprint(
-            {"BLOCK_Q": bq, "BLOCK_K": bk, "PIPELINE_DEPTH": depth}, D)),
+            {"BLOCK_Q": bq, "BLOCK_K": bk, "PIPELINE_DEPTH": depth}, D,
+            elt_bytes)),
          ("BLOCK_Q", "BLOCK_K", "PIPELINE_DEPTH"),
-         "Q, P and PIPELINE_DEPTH K/V stages fit an H100 block (227 KB)"),
+         f"{staged} and PIPELINE_DEPTH K/V stages fit an H100 block "
+         "(227 KB)"),
     ]
     return params, constraints
 
 
 def _space(shape: Shape) -> SearchSpace:
     Sq, Sk = shape["Sq"], shape["Sk"]
-    params, constraints = tuning_space(shape["D"])
+    params, constraints = tuning_space(shape["D"], _elt_bytes(shape))
     sp = SearchSpace()
     for name, values in params.items():
         sp.add_parameter(name=name, values=values)
@@ -145,17 +168,22 @@ def _make_args(shape: Shape, rng: np.random.Generator):
     space=_space,
     heuristic=lambda s: heuristic_config(s["Sq"], s["Sk"], s["D"]),
     shape_key=lambda s: shape_key(s["Sq"], s["Sk"], s["D"],
-                                  s.get("causal", True)),
+                                  s.get("causal", True),
+                                  s.get("dtype", "float32")),
+    # a float32 shape names no dtype, so a nearest-shape comparison reads
+    # its omission as float32: a bf16 winner is no float32 neighbour
+    shape_defaults={"dtype": "float32"},
     make_args=_make_args,
-    # one element width reaches the args, the build, the model, the
-    # footprint and the cost (the key stays the JAX package's, without it)
+    # one element width reaches the key, the args, the build, the space,
+    # the model, the footprint, the threads, the registers and the cost
     analytical_model=lambda s, cfg, prof: analytical_time(
         cfg, prof, s["Sq"], s["Sk"], s["D"], elt_bytes=_elt_bytes(s),
         causal=s.get("causal", True)),
     smem_footprint=lambda s, cfg: smem_footprint(cfg, s["D"],
                                                  elt_bytes=_elt_bytes(s)),
-    block_threads=lambda s, cfg: block_threads(cfg, s["D"]),
-    register_estimate=lambda s, cfg: register_estimate(cfg, s["D"]),
+    block_threads=lambda s, cfg: block_threads(cfg, s["D"], _elt_bytes(s)),
+    register_estimate=lambda s, cfg: register_estimate(cfg, s["D"],
+                                                       _elt_bytes(s)),
     cost=lambda s, cfg: traffic(cfg, s["Sq"], s["Sk"], s["D"],
                                 causal=s.get("causal", True),
                                 elt_bytes=_elt_bytes(s)),
@@ -175,9 +203,10 @@ def FLASH_ATTENTION(shape: Shape, config: Config):
 def lookup_config(Sq: int, Sk: int, D: int, causal: bool = True,
                   profile: Optional[DeviceProfile] = None,
                   cache: Optional[TuningCache] = None,
-                  policy: "AutotunePolicy | str | None" = None
+                  policy: "AutotunePolicy | str | None" = None,
+                  dtype: "torch.dtype | str" = "float32"
                   ) -> Dict[str, Any]:
-    return lookup(FLASH_ATTENTION, _shape(Sq, Sk, D, causal),
+    return lookup(FLASH_ATTENTION, _shape(Sq, Sk, D, causal, dtype),
                   profile=profile, cache=cache, policy=policy)
 
 
@@ -189,12 +218,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     ) -> torch.Tensor:
     """q: (..., Sq, D), k/v: (..., Sk, D); the leading dims are heads, all
     in one launch.  With ``config=None`` the configuration comes from the
-    registry for the profile of ``q``'s device (``profile`` overrides)."""
+    registry for the profile of ``q``'s device (``profile`` overrides) and
+    ``q``'s dtype."""
     Sq, D = q.shape[-2:]
     Sk = k.shape[-2]
     cfg = config or lookup_config(Sq, Sk, D, causal,
                                   resolve_profile(profile, q.device),
-                                  policy=policy)
+                                  policy=policy, dtype=q.dtype)
     return make_flash_attention(Sq, Sk, D, cfg, causal=causal,
                                 dtype=q.dtype)(q, k, v)
 

@@ -55,7 +55,8 @@ def warm_start_seeds(k: TunableKernel, shape: Shape, *,
     cache = cache if cache is not None else default_cache()
     seeds = [dict(e.config)
              for e in cache.nearest(k.name, dict(shape), profile.name,
-                                    k=k_nearest, objective=objective)]
+                                    k=k_nearest, objective=objective,
+                                    defaults=k.shape_defaults)]
     try:
         seeds.append(dict(k.heuristic(dict(shape))))
     except Exception as e:  # noqa: BLE001 — a broken heuristic is no seed

@@ -291,16 +291,19 @@ def test_elt_bytes_match_the_jax_package():
             shape = {"dtype": dtype}
             assert ref_ops._elt_bytes(shape) == width
             assert port_ops._elt_bytes(shape) == width
-    # the keys stay the JAX package's: GEMM's has the dtype, conv and
-    # flash keys have none
+    # the keys stay the JAX package's: GEMM's has the dtype, conv's has
+    # none; flash's float32 key has none, and a bfloat16 shape, whose
+    # build is the tensor cores', appends it
     assert gemm_ops.shape_key(64, 64, 64, "bfloat16") == \
         ref_gemm_ops.shape_key(64, 64, 64, "bfloat16")
     for dtype in ("float32", "bfloat16"):
         assert cv.CONV2D.key_for({"H": 64, "W": 128, "Fh": 3, "Fw": 3,
                                   "dtype": dtype}) == "H64_W128_F3x3"
-        assert fa.FLASH_ATTENTION.key_for(
-            {"Sq": 64, "Sk": 64, "D": 64, "causal": True,
-             "dtype": dtype}) == "Sq64_Sk64_D64_c"
+    flash = {"Sq": 64, "Sk": 64, "D": 64, "causal": True}
+    assert fa.FLASH_ATTENTION.key_for(dict(flash, dtype="float32")) == \
+        ref_flash_ops.shape_key(64, 64, 64, True) == "Sq64_Sk64_D64_c"
+    assert fa.FLASH_ATTENTION.key_for(dict(flash, dtype="bfloat16")) == \
+        "Sq64_Sk64_D64_c_bfloat16"
 
 
 GEMM_BF16 = {"M": 64, "N": 64, "K": 64, "dtype": "bfloat16"}
