@@ -3,7 +3,7 @@
     python3 chip_smoke.py               # on the machine with the card
     python3 chip_smoke.py --rehearse    # the same control flow on the CPU,
                                         # plain versions only, tiny shapes
-    python3 chip_smoke.py --times-bf16 GEMM_CONFIG FLASH_CONFIG
+    python3 chip_smoke.py --times-bf16 GEMM_CONFIG FLASH_CONFIG [CONV_CONFIG]
                                         # [times-bf16] alone at these
                                         # configs (JSON)
     python3 chip_smoke.py --sass-against PARENT_ROOT SOURCE DEFINES...
@@ -27,15 +27,21 @@ each printing its own lines:
   5. GEMM times at 2048^3: tuned kernel, heuristic config, plain version,
      torch.matmul as the library yardstick, and the FLOP bound
   6. build_new: every conv2d and flash configuration of phases 7-10 and
-     13 and both flash spaces at (4096, 4096, 128), all nvcc
-     runs at once; built threads and shared bytes (and each conv build's
-     register micro-tile) against the models; ptxas's registers and spills
-     of each conv build
+     13, the bfloat16 conv space at 4096^2 3x3 and both flash spaces at
+     (4096, 4096, 128), all nvcc runs at once; built threads and shared
+     bytes (and each conv build's register or warp tile) against the
+     models; ptxas's registers and spills of each conv build, and HMMA in
+     the SASS of each bfloat16 one
   7. conv sweep: every case of the JAX package's conv2d tests, plus even
      filters, at its shape and at 4096^2, against conv2d_plain and the
-     oracle (tolerance 1e-4, the JAX tests'); then conv-bf16: every case
-     again with bfloat16 operands (the IN_BF16 builds), against
-     conv2d_plain and the float32 oracle of the same inputs (3e-2)
+     oracle (tolerance 1e-4, the JAX tests'); then conv-bf16 (after
+     phase 9): every case again with bfloat16 operands (the IN_BF16
+     builds, on the tensor cores), against conv2d_plain
+     (conv_bf16_agreement: 2^-7 |plain| + 2^-12 rms, at most 0.5 % of
+     elements differing) and the float32 oracle of the same inputs
+     (3e-2), then the bfloat16 search's winner at 4096^2 3x3 and the
+     heuristic at 8192x4096 7x7 and 11x11 timed beside conv2d_plain,
+     F.conv2d in bfloat16 and the bound
   8. flash sweep: every case of the JAX package's attention tests, plus
      Sq > Sk causal (rows that see no key must return the mean of v) and
      bf16 inputs, at its shape and at the 4096 twin (D = 128), against
@@ -46,7 +52,13 @@ each printing its own lines:
      oracle of the same inputs (3e-2)
   9. conv main path: tune_kernel(CONV2D) at 4096^2 3x3 (annealing, the
      extended space, budget 24), lookup "exact", conv2d(config=None); then
-     conv2d(config=None) at 8192x4096 with 7x7 and 11x11 (heuristic)
+     conv2d(config=None) at 8192x4096 with 7x7 and 11x11 (heuristic);
+     conv-main-bf16: the same path in bfloat16 on the tensor cores
+     (compact space, budget 16, prebuilt in build_new, every candidate
+     held to the float32 oracle at 3e-2; lookup "exact" under the
+     bfloat16 key, the float32 record still the float32 winner;
+     conv2d(config=None) on bfloat16 tensors at the three shapes, one
+     launch each, against the oracle and conv2d_plain; the winner timed)
  10. flash main path: tune_kernel(FLASH_ATTENTION) at (4096, 4096, 128)
      causal (budget 24), lookup "exact", flash_attention(config=None) on
      (2, 8, 4096, 128) float32: one launch for all 16 heads; flash-main-bf16:
@@ -145,15 +157,18 @@ each printing its own lines:
      train_bound_ms's count, its peak within 25 % of dist's) and
      sharding-tune (tune_cell over granite-3-2b train_4k, greedy,
      budget 4, the winner resolved by lookup with provenance "exact");
-     then build_space: every fourth distinct conv build of the extended
-     space at 3x3 (93 of its 372), every fourth bfloat16 GEMM build of
-     the compact space (36 of 144) and every build of the bfloat16 flash
-     space at (4096, 4096, 128) (15), 16 nvcc at a time, with ptxas's
-     registers and spills (none may spill; after the searches, so their
-     nvcc time stays their own); each GEMM build launched at 256^3
-     against gemm_plain, and one's SASS must hold the tensor cores' HMMA;
-     each flash build launched on 2 x 512 x 512 heads against flash_plain,
-     and every one's SASS must hold HMMA
+     then build_space: every sixteenth distinct float32 conv build of the
+     extended space at 3x3 (24 of its 372), every eighth bfloat16 GEMM
+     build of the compact space (18 of 144), every build of the bfloat16
+     flash space at (4096, 4096, 128) (15) and every sixteenth bfloat16
+     conv build of the extended space at 11x11 (23 of 364), 16 nvcc at a
+     time, with ptxas's registers and spills (none may spill; after the
+     searches, so their nvcc time stays their own); each GEMM build
+     launched at 256^3 against gemm_plain, and one's SASS must hold the
+     tensor cores' HMMA; each flash build launched on 2 x 512 x 512 heads
+     against flash_plain,
+     each bfloat16 conv build on 64 x 512 against conv2d_plain, and every
+     flash and conv one's SASS must hold HMMA
  11. the CUDA kernels one F.scaled_dot_product_attention call launches,
      in float32 and in bfloat16 (the device activities of one
      torch.profiler trace each, taken right after phase 5; no device time
@@ -173,8 +188,9 @@ Each main path zeroes its kernels' launch counters just before it and
 reads them just after (the dtune workers of the process driver count in
 their own processes and report what they launched, and each of them must
 have launched the GEMM; the islands and online paths run in this one).  The
-searches' budgets (GEMM 16 in float32 and 16 in bfloat16, conv 24, flash
-24 in float32 and 24 in bfloat16) are cut from the declarations' defaults
+searches' budgets (GEMM 16 in float32 and 16 in bfloat16, conv 24 in
+float32 and 16 in bfloat16, flash 24 in float32 and 24 in bfloat16) are
+cut from the declarations' defaults
 for the time limit: a search is bound by nvcc, about 2.7-4 s per
 configuration (both flash spaces are built in build_new with the rest,
 all at once, so those searches load their libraries).  The dtune workers are
@@ -688,16 +704,21 @@ def gemm_bf16_bound(M, N, K):
                   peak=H100_SXM.peak_bf16_tensor_flops)
 
 
-def phase_times_bf16(gemm_cfgs, flash_cfgs, flash_shape, shapes, device):
+def phase_times_bf16(gemm_cfgs, flash_cfgs, flash_shape, shapes, device,
+                     conv=()):
     """The bfloat16 builds against their library calls in bfloat16, the
     versions in turns (the median of 5 runs of back-to-back launches),
     each beside its bound at the card's bfloat16 rate: the GEMM at each
     of ``shapes`` with each of ``gemm_cfgs`` (label -> config) beside
     torch.matmul (a config given twice is timed once, under its first
-    label), and flash on ``flash_shape`` = (lead, S, D) causal with each
-    of ``flash_cfgs`` (label -> config, the same rule) beside SDPA.  Every
-    result is held against the library's at BF16_TOL."""
-    record = {"gemm": []}
+    label), flash on ``flash_shape`` = (lead, S, D) causal with each
+    of ``flash_cfgs`` (label -> config, the same rule) beside SDPA, and
+    the conv at each ``conv`` (label, config, (H, W, Fh, Fw)) beside
+    F.conv2d and conv2d_plain (:func:`_time_conv_bf16`).  Every result is
+    held against the library's at BF16_TOL."""
+    record = {"gemm": [], "conv": [
+        _time_conv_bf16(label, cfg, size, device, tag="[times-bf16] conv")
+        for label, cfg, size in conv]}
     for shape in shapes:
         M, N, K = shape
         a, b = inputs(shape, "bfloat16", False, device, seed=2)
@@ -794,6 +815,14 @@ U32 = 2.0 ** -24
 FLASH_BF16_RTOL = 2.0 ** -6
 FLASH_BF16_ROW_ATOL = 2.0 ** -7
 FLASH_BF16_DIFFER = 0.01
+
+#: a bfloat16 conv build against conv2d_plain, which rounds the same float32
+#: sum once to bfloat16 (conv_bf16_agreement): one ulp of the element
+#: (2^-7 relative), plus 2^-12 of the output's rms, and at most 0.5 % of the
+#: elements may differ at all
+CONV_BF16_RTOL = 2.0 ** -7
+CONV_BF16_ATOL = 2.0 ** -12
+CONV_BF16_DIFFER = 0.005
 
 #: the configs tests/test_kernels_conv2d.py sweeps
 CONV_CONFIGS = [
@@ -922,6 +951,25 @@ def flash_bf16_agreement(out, plain):
     return share, (x != y).double().mean().item()
 
 
+def conv_bf16_agreement(out, plain):
+    """How far a bfloat16 conv build's output lies from conv2d_plain's.
+
+    Both round one float32 sum of exact products once to bfloat16, after
+    ``weight``; only the order of the float32 sum differs, which moves the
+    sum by far less than a bfloat16 ulp, so an element may round the other
+    way: by one ulp, at most 2^-7 of its size (CONV_BF16_RTOL).  An element
+    that cancels to near zero is held to 2^-12 of the output's rms instead
+    (CONV_BF16_ATOL).  Such flips are rare: the share of elements that
+    differ at all (CONV_BF16_DIFFER) reads whether the build sums what
+    conv2d_plain sums.  Returns (share of the bound used, share of
+    elements that differ)."""
+    x, y = out.double(), plain.double()
+    rms = y.pow(2).mean().sqrt()
+    share = ((x - y).abs() / (CONV_BF16_ATOL * rms
+                              + CONV_BF16_RTOL * y.abs())).max().item()
+    return share, (x != y).double().mean().item()
+
+
 def flash_tolerance(dtype, sq, q, k, v):
     """(atol, rtol, why) for the kernel against the oracle."""
     if dtype == "bfloat16":
@@ -933,42 +981,77 @@ def flash_tolerance(dtype, sq, q, k, v):
 
 def phase_build_new(objs, device):
     """Build every conv2d and flash configuration the sweeps and the main
-    paths' first calls use, one nvcc per build, all started together."""
+    paths' first calls use, one nvcc per build, all started together.
+    The built threads, shared bytes and tiles must equal the models; every
+    conv build's ptxas registers are printed, and each bfloat16 conv
+    build must spill nothing and hold the tensor cores' HMMA."""
     todo = [f for f in objs if getattr(f, "route", "cuda") == "cuda"]
     t0 = time.perf_counter()
+    record = {"conv_bf16": []}
     if device.type == "cuda":
         with ThreadPoolExecutor(len(todo)) as pool:
             addresses = set(pool.map(lambda f: f.compile(), todo))
         print(f"[build-new] {len(addresses)} libraries for {len(todo)} "
               f"kernel objects in {time.perf_counter() - t0:.2f} s")
         # the searches prune by these models: they must be what was built
-        printed = set()
+        printed, bf16 = set(), {}
         for f in todo:
             if isinstance(f, cv.Conv2d):
-                want = (cv.block_threads(f.config),
-                        cv.smem_footprint(f.config, f.Fh, f.Fw),
-                        cv.micro_tile(f.config, f.Fh, f.Fw))
+                elt = f.dtype.itemsize
+                want = (cv.block_threads(f.config, elt),
+                        cv.smem_footprint(f.config, f.Fh, f.Fw, elt),
+                        cv.micro_tile(f.config, f.Fh, f.Fw, elt))
                 if f.address not in printed:
                     printed.add(f.address)
-                    print(f"[build-new] conv2d {f.Fh}x{f.Fw} "
-                          f"{json.dumps(f.config)} micro-tile {want[2]}: "
+                    print(f"[build-new] conv2d {f.dtype} {f.Fh}x{f.Fw} "
+                          f"{json.dumps(f.config)} tile {want[2]}: "
                           + "; ".join(ptxas_info(f)))
+                    if f.dtype == torch.bfloat16:
+                        bf16[f.address] = f
             else:
                 want = (fa.block_threads(f.config, f.D, f.dtype.itemsize),
                         fa.smem_footprint(f.config, f.D, f.dtype.itemsize))
             if f.geometry() != want:
                 raise AssertionError(f"{f.config}: built {f.geometry()}, "
                                      f"modelled {want}")
-    return time.perf_counter() - t0
+        with ThreadPoolExecutor(16) as pool:
+            mnemonics = list(pool.map(lambda f: _sass_mnemonics(
+                build.library_path(f.build_name,
+                                   f.address.split(":", 1)[1])),
+                bf16.values()))
+        for f, sass in zip(bf16.values(), mnemonics):
+            lines = ptxas_info(f)
+            record["conv_bf16"].append({
+                "config": f.config, "filter": [f.Fh, f.Fw],
+                "registers": _registers(lines), "spill": spill_bytes(lines),
+                **{m: sass.get(m, 0) for m in ("HMMA", "LDSM", "LDGSTS")}})
+        bad = [r for r in record["conv_bf16"] if r["spill"] or not r["HMMA"]]
+        print(f"[build-new] conv2d bf16: {len(bf16)} builds, registers "
+              f"{sorted({r['registers'] for r in record['conv_bf16']})}, "
+              f"spilling or without HMMA: {bad}")
+        if bad:
+            raise AssertionError(f"bf16 conv builds spill or hold no HMMA: "
+                                 f"{bad}")
+    record["seconds"] = time.perf_counter() - t0
+    return record
 
 
-def phase_build_space(device, workers=16, stride=4, gemm_stride=4):
-    """Build every ``stride``-th distinct conv2d library of the extended
-    space at 3x3, in enumeration order, and read ptxas's registers and
-    spills: the register tile is capped so that none spills.  (Every one of
-    the 372 was built spill-free before; the stride keeps the script in its
-    time limit.)  Then every ``gemm_stride``-th bfloat16 GEMM build of the
-    compact space (:func:`_build_space_gemm_bf16`)."""
+def _registers(lines):
+    """The most registers ptxas gave one kernel of a build."""
+    return max(int(m) for line in lines
+               for m in re.findall(r"Used (\d+) registers", line))
+
+
+def phase_build_space(device, workers=16, stride=16, gemm_stride=8):
+    """Build every ``stride``-th distinct float32 conv2d library of the
+    extended space at 3x3, in enumeration order, and read ptxas's
+    registers and spills: the register tile is capped so that none spills.
+    Then every ``gemm_stride``-th bfloat16 GEMM build of the compact space
+    (:func:`_build_space_gemm_bf16`), the bfloat16 flash space and every
+    sixteenth bfloat16 conv build of the extended space at 11x11
+    (:func:`_build_space_conv_bf16`).  The strides keep the script in its
+    time limit: every one of the 372 float32 conv builds was built
+    spill-free before, and that build's SASS is unchanged since."""
     shape = {"H": 4096, "W": 4096, "Fh": 3, "Fw": 3}
     distinct = {}
     for c in cv.CONV2D.make_space(shape, extended=True).enumerate():
@@ -988,9 +1071,8 @@ def phase_build_space(device, workers=16, stride=4, gemm_stride=4):
         registers, spills = {}, []
         for log, fn in zip(logs, builds.values()):
             lines = ptxas_lines(log)
-            regs = [int(m) for line in lines
-                    for m in re.findall(r"Used (\d+) registers", line)]
-            registers[max(regs)] = registers.get(max(regs), 0) + 1
+            regs = _registers(lines)
+            registers[regs] = registers.get(regs, 0) + 1
             if spill_bytes(lines):
                 spills.append({"config": fn.config, "lines": lines})
         record.update(seconds=time.perf_counter() - t0,
@@ -1003,6 +1085,7 @@ def phase_build_space(device, workers=16, stride=4, gemm_stride=4):
     record["gemm_bf16"] = _build_space_gemm_bf16(device, workers,
                                                  gemm_stride)
     record["flash_bf16"] = _build_space_flash_bf16(device, workers)
+    record["conv_bf16"] = _build_space_conv_bf16(device, workers)
     return record
 
 
@@ -1087,8 +1170,7 @@ def _build_space_gemm_bf16(device, workers, stride, shape=(256, 256, 256)):
             bad.append({"config": fn.config, "built": fn.geometry(),
                         "modelled": want})
         lines = ptxas_info(fn)
-        regs = max(int(m) for line in lines
-                   for m in re.findall(r"Used (\d+) registers", line))
+        regs = _registers(lines)
         registers[regs] = registers.get(regs, 0) + 1
         if spill_bytes(lines):
             spills.append({"config": fn.config, "lines": lines})
@@ -1154,8 +1236,7 @@ def _build_space_flash_bf16(device, workers, main=(4096, 4096, 128),
             bad.append({"config": fn.config, "built": fn.geometry(),
                         "modelled": want})
         lines = ptxas_info(fn)
-        regs = max(int(m) for line in lines
-                   for m in re.findall(r"Used (\d+) registers", line))
+        regs = _registers(lines)
         registers[regs] = registers.get(regs, 0) + 1
         if spill_bytes(lines):
             spills.append({"config": fn.config, "lines": lines})
@@ -1173,11 +1254,78 @@ def _build_space_flash_bf16(device, workers, main=(4096, 4096, 128),
     return record
 
 
-def _check_row(row, kind, tag=None):
+def _build_space_conv_bf16(device, workers, stride=16, filt=(11, 11),
+                           run=(64, 512)):
+    """Build every ``stride``-th distinct bfloat16 conv library of the
+    extended space at ``filt`` (the widest filter of the main paths), none
+    may spill and each library's SASS must hold the tensor cores' HMMA;
+    launch each once at ``run`` = (H, W) against conv2d_plain
+    (conv_bf16_agreement), with its threads, shared bytes and warp tile
+    against the models."""
+    Fh, Fw = filt
+    space = cv.CONV2D.make_space({"H": 8192, "W": 4096, "Fh": Fh, "Fw": Fw,
+                                  "dtype": "bfloat16"}, extended=True)
+    distinct = {}
+    for c in space.enumerate():
+        if c["HALO_MODE"] == "materialize":
+            fn = cv.make_conv2d(*run, Fh, Fw, c, dtype=torch.bfloat16)
+            distinct.setdefault(fn.defines(), fn)
+    fns = list(distinct.values())[::stride]
+    record = {"distinct": len(distinct), "stride": stride,
+              "builds": len(fns), "filter": list(filt)}
+    if device.type == "cuda":
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(lambda f: f.compile(), fns))
+            mnemonics = list(pool.map(
+                lambda f: _sass_mnemonics(build.library_path(
+                    f.build_name, f.address.split(":", 1)[1])), fns))
+        record["seconds"] = time.perf_counter() - t0
+    registers, spills, bad, no_hmma, builds = {}, [], [], [], []
+    img, f = (x.bfloat16() for x in conv_inputs(*run, Fh, Fw, device))
+    for i, fn in enumerate(fns):
+        out = fn(img, f)
+        sync(device)
+        share, differ = conv_bf16_agreement(
+            out, cv.conv2d_plain(img, f, fn.config))
+        if not (torch.isfinite(out.float()).all() and share <= 1.0
+                and differ <= CONV_BF16_DIFFER):
+            bad.append({"config": fn.config, "share_plain": share,
+                        "differ_plain": differ})
+        if device.type != "cuda":
+            continue
+        want = (cv.block_threads(fn.config, 2),
+                cv.smem_footprint(fn.config, Fh, Fw, 2),
+                cv.micro_tile(fn.config, Fh, Fw, 2))
+        if fn.geometry() != want:
+            bad.append({"config": fn.config, "built": fn.geometry(),
+                        "modelled": want})
+        lines = ptxas_info(fn)
+        regs = _registers(lines)
+        registers[regs] = registers.get(regs, 0) + 1
+        if spill_bytes(lines):
+            spills.append({"config": fn.config, "lines": lines})
+        if not mnemonics[i].get("HMMA"):
+            no_hmma.append(fn.config)
+        builds.append({"config": fn.config, "threads": want[0],
+                       "tile": want[2], "registers": regs,
+                       **{m: mnemonics[i].get(m, 0)
+                          for m in ("HMMA", "LDSM", "LDGSTS")}})
+    record.update(registers=dict(sorted(registers.items())),
+                  spilling=spills, bad=bad, no_hmma=no_hmma, sass=builds)
+    print("[build-space] conv bf16 " + json.dumps(record))
+    if spills or bad or no_hmma:
+        raise AssertionError(f"bf16 conv builds: {len(spills)} spill, "
+                             f"{len(bad)} disagree: {bad}; no HMMA in "
+                             f"{no_hmma}")
+    return record
+
+
+def _check_row(row, kind, tag=None, differ=FLASH_BF16_DIFFER):
     print(f"[{tag or kind + '-sweep'}] " + json.dumps(row))
     if not (row["finite"] and row["share_plain"] <= 1.0
             and row["share_oracle"] <= 1.0 and row.get("mean_v_ok", True)
-            and row.get("differ_plain", 0.0) <= FLASH_BF16_DIFFER):
+            and row.get("differ_plain", 0.0) <= differ):
         raise AssertionError(f"{kind} {row['case']} disagrees: {row}")
 
 
@@ -1332,6 +1480,88 @@ def phase_conv_main(main, big_shapes, device, budget):
     record["trials"] = _trials(outcome)
     if device.type == "cuda" and launches["conv2d"] == 0:
         raise AssertionError("the conv2d kernel was not launched on the path")
+    return record
+
+
+def phase_conv_main_bf16(main, big_shapes, device, budget, f32_winner):
+    """The conv main path in bfloat16 on the tensor cores:
+    tune_kernel(CONV2D) at ``main`` with dtype "bfloat16" over the compact
+    space (every candidate held to the float32 oracle at BF16_TOL), lookup
+    (provenance "exact" under the bfloat16 key), the float32 record at the
+    same shape still ``f32_winner``; conv2d(config=None) on bfloat16
+    tensors at ``main`` (exact) and at each of ``big_shapes`` (heuristic),
+    each one launch of the bfloat16 build, against the float32 oracle
+    (BF16_TOL) and conv2d_plain (conv_bf16_agreement); then the winner
+    timed beside conv2d_plain, F.conv2d in bfloat16 and its bound."""
+    H, W, Fh, Fw = main
+    f32_shape = {"H": H, "W": W, "Fh": Fh, "Fw": Fw}
+    shape = dict(f32_shape, dtype="bfloat16")
+    profile = device_profile(device)
+    cache = default_cache()
+    evaluator = WallClockEvaluator(atol=BF16_TOL, rtol=BF16_TOL,
+                                   device=device)
+    zero_counts()
+    t0 = time.perf_counter()
+    outcome = tune_kernel(cv.CONV2D, shape, strategy="annealing",
+                          budget=budget, seed=0, evaluator=evaluator,
+                          profile=profile, cache=cache, extended_space=False)
+    tune_s = time.perf_counter() - t0
+    _check_tune(outcome, "bf16 conv2d")
+    best = outcome.result.best
+    res = lookup_resolved(cv.CONV2D, shape, profile=profile, cache=cache)
+    if res.provenance != "exact" or res.config != best.config:
+        raise AssertionError(f"bf16 conv2d lookup gave {res}")
+    f32 = lookup_resolved(cv.CONV2D, f32_shape, profile=profile, cache=cache)
+    if f32.provenance != "exact" or f32.config != f32_winner:
+        raise AssertionError(f"the float32 conv2d record moved: {f32}")
+    calls = []
+    for size in [main] + list(big_shapes):
+        s = dict(zip(("H", "W", "Fh", "Fw"), size), dtype="bfloat16")
+        r = lookup_resolved(cv.CONV2D, s, profile=profile, cache=cache)
+        img, f = (x.bfloat16() for x in conv_inputs(*size, device, seed=1))
+        before = cv.LAUNCHES["conv2d"]
+        out = cv.conv2d(img, f)                 # config=None: the registry
+        sync(device)
+        oracle = cv.conv2d_reference(img.float(), f.float())
+        call = {"shape": list(size), "provenance": r.provenance,
+                "config": r.config, "key": cv.CONV2D.key_for(s),
+                "route": cv.make_conv2d(*size, r.config,
+                                        dtype=torch.bfloat16).route,
+                "launches": cv.LAUNCHES["conv2d"] - before,
+                "dtype": str(out.dtype), "err_oracle": max_err(out, oracle),
+                "share_oracle": tol_share(out, oracle, BF16_TOL, BF16_TOL)}
+        call["share_plain"], call["differ_plain"] = conv_bf16_agreement(
+            out, cv.conv2d_plain(img, f, r.config))
+        calls.append(call)
+        want = "exact" if size == main else "heuristic"
+        if (r.provenance != want or out.dtype != torch.bfloat16
+                or call["share_oracle"] > 1.0 or call["share_plain"] > 1.0
+                or call["differ_plain"] > CONV_BF16_DIFFER):
+            raise AssertionError(f"bf16 conv2d() at {size}: {call}")
+        if device.type == "cuda" and (call["route"] != "cuda"
+                                      or call["launches"] != 1):
+            raise AssertionError(f"bf16 conv2d() at {size} did not launch "
+                                 f"the bf16 build once: {call}")
+    launches = read_counts()
+    stats_ = outcome.engine_stats or {}
+    record = {
+        "winner": best.config, "winner_ms": best.time * 1e3,
+        "evaluations": outcome.result.evaluations,
+        "failures_by_type": outcome.failure_summary.get("by_type", {}),
+        "compile_s": stats_.get("compile_total_s"),
+        "compile_calls": stats_.get("compile_calls"),
+        "tune_wall_s": tune_s, "lookup": res.provenance,
+        "key": cv.CONV2D.key_for(shape), "f32_key": cv.CONV2D.key_for(
+            f32_shape), "f32_lookup": f32.config, "calls": calls,
+        "launches": launches}
+    if best.config["HALO_MODE"] == "materialize":
+        record.update(_time_conv_bf16("conv bf16 {}x{} {}x{}".format(*main),
+                                      best.config, main, device))
+    print("[conv-main-bf16] " + json.dumps(
+        {k: v for k, v in record.items() if not k.endswith("_runs")}))
+    record["trials"] = _trials(outcome)
+    if device.type == "cuda":
+        _check_launched(launches, ["conv2d"], "[conv-main-bf16]")
     return record
 
 
@@ -1797,12 +2027,13 @@ DTUNE_TIE = 0.05
 
 
 def phase_conv_bf16(cases, fns, big, device, timed):
-    """Every conv sweep case with bfloat16 operands against conv2d_plain
-    and the float32 oracle of the same (rounded) inputs, at 3e-2; then the
+    """Every conv sweep case with bfloat16 operands (the tensor-core
+    build) against conv2d_plain by conv_bf16_agreement, and against the
+    float32 oracle of the same (rounded) inputs at BF16_TOL; then the
     bfloat16 kernel at each ``timed`` (label, config, (H, W, Fh, Fw)) main
-    shape against ``F.conv2d`` in bfloat16, the two in turns, beside its
-    bound (:func:`conv_bf16_bound`).  A case that fails or cannot be
-    timed fails the phase."""
+    shape beside conv2d_plain, ``F.conv2d`` in bfloat16 and its bound
+    (:func:`conv_bf16_bound`), the versions in turns.  A case that fails
+    or cannot be timed fails the phase."""
     rows = []
     for name, cfg, hw, filt, weight in cases:
         for size in (hw, big):
@@ -1818,51 +2049,66 @@ def phase_conv_bf16(cases, fns, big, device, timed):
                    "finite": bool(torch.isfinite(out.float()).all()),
                    "err_plain": max_err(out, plain),
                    "err_oracle": max_err(out, oracle),
-                   "share_plain": tol_share(out, plain, BF16_TOL, BF16_TOL),
                    "share_oracle": tol_share(out, oracle, BF16_TOL,
                                              BF16_TOL),
-                   "tol": [BF16_TOL, BF16_TOL]}
+                   "tol": [BF16_TOL, BF16_TOL],
+                   "tol_plain": [CONV_BF16_ATOL, CONV_BF16_RTOL,
+                                 CONV_BF16_DIFFER]}
+            # the oracle keeps BF16_TOL; the plain version rounds the same
+            # float32 sum once, so it is held much closer
+            row["share_plain"], row["differ_plain"] = conv_bf16_agreement(
+                out, plain)
             if out.dtype != torch.bfloat16:
                 raise AssertionError(f"conv2d returned {out.dtype}: {row}")
             rows.append(row)
-            _check_row(row, "conv", tag="conv-bf16")
-    times = []
-    for label, cfg, size in timed:
-        H, W, Fh, Fw = size
-        fn = cv.make_conv2d(H, W, Fh, Fw, cfg, dtype=torch.bfloat16)
-        img, f = (x.bfloat16() for x in conv_inputs(*size, device, seed=2))
-
-        def library():
-            return F.conv2d(img[None, None], f[None, None],
-                            padding=(Fh // 2, Fw // 2))
-
-        runs = time_in_turns({"kernel": lambda: fn(img, f),
-                              "library": library}, device)
-        out, lib = fn(img, f), library()[0, 0]
-        bound_ms, bound_by = conv_bf16_bound(H, W, Fh, Fw)
-        rec = {"label": label, "config": fn.config, "shape": list(size),
-               "ms": float(np.median(runs["kernel"])),
-               "library_ms": float(np.median(runs["library"])),
-               "bound_ms": bound_ms, "bound_by": bound_by,
-               "err_library": max_err(out, lib),
-               "share_library": tol_share(out, lib, BF16_TOL, BF16_TOL),
-               "ms_runs": runs["kernel"], "library_ms_runs": runs["library"]}
-        rec["share_of_bound"] = bound_ms / rec["ms"]
-        print("[conv-bf16-times] " + json.dumps(
-            {k: v for k, v in rec.items() if not k.endswith("_runs")}))
-        if out.dtype != torch.bfloat16 or not rec["share_library"] <= 1.0:
-            raise AssertionError(f"bf16 conv against F.conv2d: {rec}")
-        times.append(rec)
+            _check_row(row, "conv", tag="conv-bf16",
+                       differ=CONV_BF16_DIFFER)
+    times = [_time_conv_bf16(label, cfg, size, device)
+             for label, cfg, size in timed]
     return {"rows": rows, "times": times}
+
+
+def _time_conv_bf16(label, cfg, size, device, tag="[conv-bf16-times]"):
+    """The bfloat16 kernel of ``cfg`` at ``size`` beside conv2d_plain and
+    F.conv2d in bfloat16 (CUDA events, in turns) and its bound; held to
+    conv2d_plain (conv_bf16_agreement) and F.conv2d (BF16_TOL).  It uses
+    only what the parent tree's package has too, so ``--times-bf16`` runs
+    it from a copy of this script there."""
+    H, W, Fh, Fw = size
+    fn = cv.make_conv2d(H, W, Fh, Fw, cfg, dtype=torch.bfloat16)
+    img, f = (x.bfloat16() for x in conv_inputs(*size, device, seed=2))
+
+    def library():
+        return F.conv2d(img[None, None], f[None, None],
+                        padding=(Fh // 2, Fw // 2))
+
+    rec = _time_case(fn, (img, f), lambda: cv.conv2d_plain(img, f, fn.config),
+                     library, device, iters=50, plain_iters=3)
+    out, lib = fn(img, f), library()[0, 0]
+    rec["bound_ms"], rec["bound_by"] = conv_bf16_bound(H, W, Fh, Fw)
+    rec.update(label=label, shape=list(size),
+               share_of_bound=rec["bound_ms"] / rec["ms"],
+               err_library=max_err(out, lib),
+               share_library=tol_share(out, lib, BF16_TOL, BF16_TOL))
+    rec["share_plain"], rec["differ_plain"] = conv_bf16_agreement(
+        out, cv.conv2d_plain(img, f, fn.config))
+    print(f"{tag} " + json.dumps(
+        {k: v for k, v in rec.items() if not k.endswith("_runs")}))
+    if (out.dtype != torch.bfloat16 or not rec["share_library"] <= 1.0
+            or rec["share_plain"] > 1.0
+            or rec["differ_plain"] > CONV_BF16_DIFFER):
+        raise AssertionError(f"bf16 conv against F.conv2d or "
+                             f"conv2d_plain: {rec}")
+    return rec
 
 
 def conv_bf16_bound(H, W, Fh, Fw):
     """(ms, "bytes" or "operations"): the least time of a bfloat16 conv of
     an (H, W) image by an (Fh, Fw) filter: its bytes at bfloat16 width
     (image and filter read once, the output written once) over the HBM
-    rate, or its multiply-adds at the card's bfloat16 rate, the larger.
-    The kernel widens each operand to float32 and so runs at the float32
-    FMA rate; that is a cause of its time, not a bound on the work."""
+    rate, or its footnote-2 operations at the card's bfloat16 rate, the
+    larger.  The products the band's zeros add are no work of the
+    function; they are a cause of the kernel's time, not a bound."""
     return _bound(cv.conv_flops(H, W, Fh, Fw), 2.0 * (2 * H * W + Fh * Fw),
                   peak=H100_SXM.peak_bf16_tensor_flops)
 
@@ -3073,6 +3319,15 @@ def phase_sdpa_route(S, D, device, dtype="float32"):
     return kernels
 
 
+def conv_bf16_timed(main, big_shapes, winner):
+    """(label, config, shape) of the bfloat16 conv's timed shapes: the
+    bfloat16 search's ``winner`` at ``main``, the heuristic at each of
+    ``big_shapes`` (what conv2d(config=None) resolves there)."""
+    return ([("conv bf16 {}x{} {}x{}".format(*main), winner, main)]
+            + [("conv bf16 {}x{} {}x{}".format(*size),
+                cv.heuristic_config(*size), size) for size in big_shapes])
+
+
 def conv_large_configs():
     """The [conv-large] sweep: SUB_H x BLOCK_H at BLOCK_W 256; the first
     is the heuristic config (SUB_H 1, 16 x 256)."""
@@ -3597,12 +3852,14 @@ def main(argv=None):
     ap.add_argument("--rehearse", action="store_true",
                     help="run the control flow on the CPU at tiny shapes "
                          "with the plain versions; prints no result")
-    ap.add_argument("--times-bf16", nargs=2,
-                    metavar=("GEMM_CONFIG", "FLASH_CONFIG"),
-                    help="run [times-bf16] alone, with these float32 "
-                         "winners (JSON), and print no result: run from a "
-                         "copy of this script in another tree, it times "
-                         "that tree's builds")
+    ap.add_argument("--times-bf16", nargs="+",
+                    metavar="GEMM_CONFIG FLASH_CONFIG [CONV_CONFIG]",
+                    help="run [times-bf16] alone, with these winners "
+                         "(JSON: the float32 GEMM's, flash's, and the "
+                         "bfloat16 conv's, timed at 4096^2 3x3 beside the "
+                         "heuristic at 8192x4096 7x7 and 11x11), and print "
+                         "no result: run from a copy of this script in "
+                         "another tree, it times that tree's builds")
     ap.add_argument("--sass-against", nargs="+",
                     metavar="PARENT_ROOT SOURCE DEFINES",
                     help="build SOURCE (relative to each tree's root) "
@@ -3613,6 +3870,9 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.sass_against is not None and len(args.sass_against) < 3:
         ap.error("--sass-against takes PARENT_ROOT SOURCE DEFINES...")
+    if args.times_bf16 is not None and len(args.times_bf16) not in (2, 3):
+        ap.error("--times-bf16 takes GEMM_CONFIG FLASH_CONFIG "
+                 "[CONV_CONFIG]")
     t_main = time.perf_counter()
     if args.rehearse:
         device, main_shape, budget = torch.device("cpu"), (256, 256, 256), 6
@@ -3620,6 +3880,7 @@ def main(argv=None):
             (128, 256, 7, 7), (128, 256, 11, 11)]
         big_s, flash_main, flash_lead = 512, (256, 256, 64), (2, 2)
         conv_budget, flash_budget, flash_bf16_budget = 6, 4, 4
+        conv_bf16_budget = 4
         predict_shape, lookup_shape = (512, 512, 128), (128, 512, 512)
         online_shape = (64, 512, 256)
         bf16_shapes, bf16_budget = ((256,) * 3, (512,) * 3), 4
@@ -3634,6 +3895,7 @@ def main(argv=None):
             (8192, 4096, 7, 7), (8192, 4096, 11, 11)]
         big_s, flash_main, flash_lead = 4096, (4096, 4096, 128), (2, 8)
         conv_budget, flash_budget, flash_bf16_budget = 24, 24, 24
+        conv_bf16_budget = 16
         # shapes no other phase tunes
         predict_shape, lookup_shape = (4096, 4096, 1024), (1024, 4096, 4096)
         # M = 256: the heuristic's 128 x 128 tiles fill 64 of 132 SMs
@@ -3649,14 +3911,18 @@ def main(argv=None):
         return 1 if sass_against(parent, source,
                                  [json.loads(d) for d in defines]) else 0
     if args.times_bf16:
-        gemm_cfg, flash_cfg = (json.loads(c) for c in args.times_bf16)
+        gemm_cfg, flash_cfg, *conv_cfg = (json.loads(c)
+                                          for c in args.times_bf16)
         phase_sdpa_route(flash_main[0], flash_main[2], device,
                          dtype="bfloat16")
         phase_times_bf16({"f32_winner": gemm_cfg,
                           "heuristic": heuristic_config(*main_shape)},
                          {"given": flash_cfg},
                          (flash_lead, flash_main[0], flash_main[2]),
-                         bf16_shapes, device)
+                         bf16_shapes, device,
+                         conv=conv_bf16_timed(conv_main, conv_big,
+                                              conv_cfg[0])
+                         if conv_cfg else ())
         return 0
     # the fake-world dry-runs and the sharding search need no card: they
     # run beside the phases below from here (the GEMM search builds one
@@ -3693,8 +3959,15 @@ def main(argv=None):
             flash_fns[(name, sq, d)] = fa.make_flash_attention(
                 sq, sk, d, flash_twin(cfg, d, dt.itemsize), causal=causal,
                 dtype=dt)
-    conv_heur = [cv.make_conv2d(*s, cv.heuristic_config(*s))
-                 for s in [conv_main] + conv_big]
+    conv_heur = [cv.make_conv2d(*s, cv.heuristic_config(*s), dtype=dt)
+                 for s in [conv_main] + conv_big
+                 for dt in (torch.float32, torch.bfloat16)]
+    # the bfloat16 conv search's whole space, built with the rest at once
+    conv_space_bf16 = [
+        cv.make_conv2d(*conv_main, c, dtype=torch.bfloat16)
+        for c in cv.CONV2D.make_space(dict(
+            zip(("H", "W", "Fh", "Fw"), conv_main), dtype="bfloat16")
+        ).enumerate() if c["HALO_MODE"] == "materialize"]
     conv_large = [cv.make_conv2d(*conv_big[-1], cfg)
                   for cfg in conv_large_configs()]
     flash_heur = fa.make_flash_attention(
@@ -3730,8 +4003,9 @@ def main(argv=None):
     for phase, run in [
             ("build_new", lambda: phase_build_new(
                 list(conv_fns.values()) + list(conv_bf16_fns.values())
-                + conv_heur + conv_large + list(flash_fns.values())
-                + [flash_heur] + flash_spaces, device)),
+                + conv_heur + conv_space_bf16 + conv_large
+                + list(flash_fns.values()) + [flash_heur] + flash_spaces,
+                device)),
             ("conv_sweep", lambda: phase_conv_sweep(ccases, conv_fns, big,
                                                     device)),
             ("flash_sweep", lambda: phase_flash_sweep(fcases, flash_fns,
@@ -3739,9 +4013,13 @@ def main(argv=None):
             ("background", lambda: collect_background(background)),
             ("conv_main", lambda: phase_conv_main(conv_main, conv_big, device,
                                                   conv_budget)),
-            # after the search: timed at its best config
+            ("conv_main_bf16", lambda: phase_conv_main_bf16(
+                conv_main, conv_big, device, conv_bf16_budget,
+                new["conv_main"]["winner"])),
+            # after the bfloat16 search: timed at its winner
             ("conv_bf16", lambda: phase_conv_bf16(
-                ccases, conv_bf16_fns, big, device, conv_timed())),
+                ccases, conv_bf16_fns, big, device, conv_bf16_timed(
+                    conv_main, conv_big, new["conv_main_bf16"]["winner"]))),
             ("flash_main", lambda: phase_flash_main(flash_main, flash_lead,
                                                     device, flash_budget)),
             ("flash_main_bf16", lambda: phase_flash_main_bf16(
@@ -3749,6 +4027,7 @@ def main(argv=None):
                 new["flash_main"]["winner"])),
             # the GEMM float32 search's winner and heuristic config, built
             # in bfloat16; flash with the bfloat16 and float32 winners
+            # (the bf16 conv is timed in [conv-bf16])
             ("times_bf16", lambda: phase_times_bf16(
                 {"f32_winner": main_rec["winner"],
                  "heuristic": heuristic_config(*main_shape)},
@@ -3836,6 +4115,14 @@ def main(argv=None):
         "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
         "plain_ms": fb["plain_ms"], "bound_ms": fb["bound_ms"],
         "bound_by": fb["bound_by"], "library_ms": fb["library_ms"]})
+    cb = new["conv_main_bf16"]
+    line["kernels"].append({
+        "name": "conv2d_bf16", "route": "cuda", "source": SOURCES["conv2d"],
+        "replaces": REPLACES["conv2d"],
+        "launches": cb["launches"]["conv2d"],
+        "max_abs_err": cb["max_abs_err"], "ms": cb["ms"],
+        "plain_ms": cb["plain_ms"], "bound_ms": cb["bound_ms"],
+        "bound_by": cb["bound_by"], "library_ms": cb["library_ms"]})
     for name, rec, label in (("conv2d", conv_rec, conv_label),
                              ("flash_attention", flash_rec, flash_label)):
         k = new["times_new"][label]

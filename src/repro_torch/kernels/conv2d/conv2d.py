@@ -46,9 +46,17 @@ so as a constraint, with the shared-memory footprint
 failed launch.
 
 Operands are float32, or both bfloat16 as in the JAX package (whose kernel
-writes the image's dtype): the build for bfloat16 (``IN_BF16``) stages
-the tile as float32, sums in float32 and rounds each output once.  A
-:class:`Conv2d` is made for one input type and builds that type's library.
+writes the image's dtype).  The build for bfloat16 (``IN_BF16``) runs on
+the tensor cores: for each filter row, 16 output columns of 8 output rows
+are one ``mma.sync`` product of a band of the filter row (16 x 16*KS) and
+the staged bfloat16 image (:func:`band_offset`, :func:`k_steps`,
+:func:`staging_origin`, :func:`warp_tile`; :func:`conv2d_banded` is that
+schedule in PyTorch).  Every product is exact in float32 and summed in
+float32, and each output is rounded once to bfloat16, as in
+:func:`conv2d_plain`; only the order of the float32 sum differs.  Its
+threads, shared bytes and registers are its own (``elt_bytes=2`` in the
+models).  A :class:`Conv2d` is made for one input type and builds that
+type's library.
 
 Which implementation runs follows the tensors' device alone: tensors on
 the CPU take the plain PyTorch version (:func:`conv2d_plain`, the kernel's
@@ -102,13 +110,89 @@ def row_geometry(config: Config) -> Tuple[int, int, int]:
     return ty, tx, -(-config["BLOCK_W"] // tx)
 
 
-def block_threads(config: Config) -> int:
-    """Threads of one block the build derives from the tile (0 for 'xla',
-    which launches no kernel of ours)."""
+def block_threads(config: Config, elt_bytes: int = 4) -> int:
+    """Threads of one block the build for ``elt_bytes``-wide inputs derives
+    from the tile (0 for 'xla', which launches no kernel of ours): float32
+    TX * TY, bfloat16 a warp per :func:`warp_tile`."""
     if config.get("HALO_MODE", "materialize") == "xla":
         return 0
+    if elt_bytes == 2:
+        return 32 * _warps(config)
     ty, tx, _ = row_geometry(config)
     return tx * ty
+
+
+# ---------------------------------------------------------------------------
+# the bfloat16 build's geometry (csrc/conv2d.cu, IN_BF16): a banded product
+# on mma.sync m16n8k16
+# ---------------------------------------------------------------------------
+
+#: m16n8 tiles (32 float32 sums a lane) a warp of the bfloat16 build holds
+MAX_WARP_TILES = 8
+#: row groups of 8 a warp of the bfloat16 build sums at most (eight of one
+#: column block spilled: ptxas kept every group's next image fragments)
+MAX_ROW_GROUPS = 4
+#: registers a lane of the bfloat16 build keeps besides its sums and its
+#: band fragments (image fragments, addresses, loop state)
+REG_OVERHEAD_BF16 = 32
+
+
+def band_offset(Fw: int) -> int:
+    """Columns from the staging origin to a column block's first tap,
+    (-(Fw // 2)) mod 8: the origin is the 16-byte-aligned column at or
+    below c0 - Fw // 2, and c0 is a multiple of 16 (``OFF``)."""
+    return -(Fw // 2) % 8
+
+
+def k_steps(Fw: int) -> int:
+    """k-steps of 16 one column block's band spans: its 16 columns' taps
+    reach band_offset + Fw + 15 input columns (``KS``)."""
+    return -(-(band_offset(Fw) + Fw + 15) // 16)
+
+
+def staging_origin(c0: int, Fw: int) -> int:
+    """The first image column a block at output column ``c0`` stages."""
+    return c0 - Fw // 2 - band_offset(Fw)
+
+
+def warp_tile(config: Config, Fh: int, Fw: int) -> Tuple[int, int, int]:
+    """(row groups of 8, column blocks of 16, k-steps) of one warp's tile
+    in the bfloat16 build: RG = min(SUB_H, :data:`MAX_ROW_GROUPS`,
+    ceil(BLOCK_H / 8)), NB the widest divisor of BLOCK_W / 16 with RG * NB
+    <= :data:`MAX_WARP_TILES`, and :func:`k_steps`.  The filter height
+    does not enter."""
+    cfg = _merged(config)
+    rg = min(cfg["SUB_H"], MAX_ROW_GROUPS, -(-cfg["BLOCK_H"] // 8))
+    cb = max(1, cfg["BLOCK_W"] // 16)
+    nb = next(n for n in range(MAX_WARP_TILES // rg, 0, -1) if cb % n == 0)
+    return rg, nb, k_steps(Fw)
+
+
+def _warps_y(config: Config) -> int:
+    """Warps down a bfloat16 block: its row groups of 8 over RG."""
+    row_groups = -(-config["BLOCK_H"] // 8)
+    return -(-row_groups // warp_tile(config, 1, 1)[0])
+
+
+def _warps(config: Config) -> int:
+    """Warps of a bfloat16 block: down the rows times across the column
+    blocks (BLOCK_W / 16 over NB)."""
+    nb = warp_tile(config, 1, 1)[1]
+    return _warps_y(config) * (max(1, config["BLOCK_W"] // 16) // nb)
+
+
+def summed_rows(config: Config) -> int:
+    """Rows a bfloat16 block sums: BLOCK_H rounded up to its warps' row
+    groups (the rest are summed from staged rows and not stored)."""
+    return 8 * warp_tile(config, 1, 1)[0] * _warps_y(config)
+
+
+def warp_registers(config: Config, Fh: int, Fw: int) -> int:
+    """Registers a lane of the bfloat16 build needs: 4 sums a tile, a
+    filter row's KS band fragments (4 each) and
+    :data:`REG_OVERHEAD_BF16`."""
+    rg, nb, ks = warp_tile(config, Fh, Fw)
+    return 4 * rg * nb + 4 * ks + REG_OVERHEAD_BF16
 
 
 #: registers a thread may use at 1024 resident threads an SM (65536 over
@@ -146,9 +230,11 @@ def register_estimate(config: Config, Fw: int, cols: int) -> int:
     return config["SUB_H"] * (cols + _window(cols, Fw)) + REG_OVERHEAD
 
 
-def micro_tile(config: Config, Fh: int, Fw: int) -> Tuple[int, int, int]:
+def micro_tile(config: Config, Fh: int, Fw: int,
+               elt_bytes: int = 4) -> Tuple[int, int, int]:
     """(rows, columns, column groups) of one thread's register tile, as the
-    build derives them (``csrc/conv2d.cu``, ``pick_cg``).
+    float32 build derives them (``csrc/conv2d.cu``, ``pick_cg``); for
+    bfloat16 (``elt_bytes=2``) the warp's tile, :func:`warp_tile`.
 
     The columns are the widest divisor of the thread's ceil(BLOCK_W / TX)
     columns, at most :data:`MAX_GROUP_COLS`, whose
@@ -156,6 +242,8 @@ def micro_tile(config: Config, Fh: int, Fw: int) -> Tuple[int, int, int]:
     does); the groups take the rest, one after the other.  The filter
     height does not enter: one filter row is live at a time.
     """
+    if elt_bytes == 2:
+        return warp_tile(config, Fh, Fw)
     cfg = _merged(config)
     per_thread = row_geometry(cfg)[2]
     for cols in range(min(per_thread, MAX_GROUP_COLS), 1, -1):
@@ -175,22 +263,39 @@ def resident_threads(config: Config, Fh: int, Fw: int) -> int:
             <= REGISTERS_SMALL else 1024)
 
 
-def smem_footprint(config: Config, Fh: int, Fw: int) -> int:
-    """Bytes of shared memory one block claims (0 for 'xla'): the halo
-    tile and the filter, staged as float32 whatever the input type.  A
-    tile row holds the columns the windows read, TX * ceil(BLOCK_W / TX) +
-    Fw - 1, rounded up to a multiple of 8 (the kernel swizzles quads within
-    pairs), plus PAD_W quads; a filter row is rounded up to a quad."""
+def smem_footprint(config: Config, Fh: int, Fw: int,
+                   elt_bytes: int = 4) -> int:
+    """Bytes of shared memory one block of the build for ``elt_bytes``-wide
+    inputs claims (0 for 'xla').
+
+    float32: the halo tile and the filter.  A tile row holds the columns
+    the windows read, TX * ceil(BLOCK_W / TX) + Fw - 1, rounded up to a
+    multiple of 8 (the kernel swizzles quads within pairs), plus PAD_W
+    quads; a filter row is rounded up to a quad.
+
+    bfloat16: the halo tile of :func:`summed_rows` + Fh - 1 rows, each of
+    16 * (BLOCK_W / 16 + KS - 1) columns in 16-byte chunks plus one chunk
+    and 2 * PAD_W more (an odd count); the band, Fh x 16 rows of 16 * KS +
+    8 columns; the zero-padded filter rows, Fh x (16 * KS + 16).  The
+    output is staged in the tile's place.
+    """
     cfg = _merged(config)
     if cfg["HALO_MODE"] == "xla":
         return 0
+    if elt_bytes == 2:
+        ks = k_steps(Fw)
+        chunks = 2 * (max(1, cfg["BLOCK_W"] // 16) + ks - 1)
+        stride = 8 * (chunks + 1 + 2 * int(cfg.get("PAD_W", 0)))
+        tile = (summed_rows(cfg) + Fh - 1) * stride
+        return 2 * (tile + Fh * 16 * (16 * ks + 8) + Fh * (16 * ks + 16))
     _, tx, per_thread = row_geometry(cfg)
     row = (_round_up(tx * per_thread + Fw - 1, 8)
            + 4 * int(cfg.get("PAD_W", 0)))
     return 4 * ((cfg["BLOCK_H"] + Fh - 1) * row + Fh * _round_up(Fw, 4))
 
 
-def validate_config(config: Config, H: int, W: int, Fh: int, Fw: int) -> None:
+def validate_config(config: Config, H: int, W: int, Fh: int, Fw: int,
+                    elt_bytes: int = 4) -> None:
     bh, bw = config["BLOCK_H"], config["BLOCK_W"]
     if config["BLOCK_H"] % config["SUB_H"]:
         raise ValueError("BLOCK_H must divide by SUB_H")
@@ -198,10 +303,15 @@ def validate_config(config: Config, H: int, W: int, Fh: int, Fw: int) -> None:
         raise ValueError("blocks must be positive")
     if config["HALO_MODE"] not in ("materialize", "xla"):
         raise ValueError(f"bad HALO_MODE {config['HALO_MODE']!r}")
-    if block_threads(config) > 1024:
+    if config["HALO_MODE"] == "xla":
+        return
+    if elt_bytes == 2 and bw % 16:
+        raise ValueError(f"the bfloat16 build tiles BLOCK_W in columns of "
+                         f"16 (mma tiles), not {bw}")
+    threads = block_threads(config, elt_bytes)
+    if threads > 1024:
         raise ValueError(f"({bh},{bw}) blocks with SUB_H={config['SUB_H']} "
-                         f"need {block_threads(config)} threads; a block has "
-                         "at most 1024")
+                         f"need {threads} threads; a block has at most 1024")
 
 
 def _defines(cfg: Config, Fh: int, Fw: int,
@@ -238,6 +348,61 @@ def conv2d_plain(image: torch.Tensor, filt: torch.Tensor,
     return (weight * acc).to(image.dtype)
 
 
+def band(filt: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 build's band of each filter row, (Fh, 16, 16 * KS)
+    float32: band[i, m, k] = filt[i, k - m - OFF] inside the filter, 0
+    elsewhere (OFF = :func:`band_offset`, KS = :func:`k_steps`)."""
+    Fh, Fw = filt.shape
+    off, kw = band_offset(Fw), 16 * k_steps(Fw)
+    j = (torch.arange(kw, device=filt.device)[None, :]
+         - torch.arange(16, device=filt.device)[:, None] - off)
+    inside = (j >= 0) & (j < Fw)
+    taps = filt.to(torch.float32)[:, j.clamp(0, Fw - 1)]
+    return torch.where(inside, taps, torch.zeros((), device=filt.device))
+
+
+def conv2d_banded(image: torch.Tensor, filt: torch.Tensor,
+                  config: Optional[Config] = None,
+                  weight: float = 1.0) -> torch.Tensor:
+    """The bfloat16 build's schedule in PyTorch, block by block: stage the
+    halo tile from :func:`staging_origin` (zeros outside the image, every
+    column the products read), then for each filter row and each column
+    block of 16 the product of :func:`band` with the K staged columns
+    from 16 * t, summed in float32 in filter-row order; times ``weight``,
+    rounded once to the image's dtype.  It equals :func:`conv2d_plain` up
+    to the order of the float32 sum (its tests hold it there) and so
+    describes what the build computes; it is no fallback of the wrapper.
+    """
+    cfg = _merged(config)
+    H, W = image.shape
+    Fh, Fw = filt.shape
+    bh, bw = cfg["BLOCK_H"], cfg["BLOCK_W"]
+    rows, cb, kw = summed_rows(cfg), bw // 16, 16 * k_steps(Fw)
+    span = 16 * (cb + k_steps(Fw) - 1)
+    img = image.to(torch.float32)
+    bands = band(filt)
+    out = torch.empty((H, W), dtype=torch.float32, device=image.device)
+    for r0 in range(0, H, bh):
+        for c0 in range(0, W, bw):
+            gr, gc = r0 - Fh // 2, staging_origin(c0, Fw)
+            tile = torch.zeros((rows + Fh - 1, span), dtype=torch.float32,
+                               device=image.device)
+            r_lo, r_hi = max(gr, 0), min(gr + rows + Fh - 1, H)
+            c_lo, c_hi = max(gc, 0), min(gc + span, W)
+            if r_lo < r_hi and c_lo < c_hi:
+                tile[r_lo - gr:r_hi - gr, c_lo - gc:c_hi - gc] = \
+                    img[r_lo:r_hi, c_lo:c_hi]
+            x = tile.unfold(1, kw, 16)           # (rows, cb, K): block t
+            acc = torch.zeros((rows, cb, 16), dtype=torch.float32,
+                              device=image.device)
+            for i in range(Fh):
+                acc += torch.einsum("rtk,mk->rtm", x[i:i + rows], bands[i])
+            blk = (weight * acc).reshape(rows, cb * 16)
+            out[r0:r0 + bh, c0:c0 + bw] = blk[:min(bh, H - r0),
+                                              :min(bw, W - c0)]
+    return out.to(image.dtype)
+
+
 class Conv2d:
     """``fn(image, filt) -> (H, W)`` for one shape, configuration and input
     type.
@@ -257,9 +422,9 @@ class Conv2d:
                  config: Optional[Config], weight: float = 1.0,
                  dtype: torch.dtype = torch.float32):
         cfg = _merged(config)
-        validate_config(cfg, H, W, Fh, Fw)
         if dtype not in DTYPES.values():
             raise ValueError(f"conv2d takes float32 or bfloat16, not {dtype}")
+        validate_config(cfg, H, W, Fh, Fw, dtype.itemsize)
         self.H, self.W, self.Fh, self.Fw = H, W, Fh, Fw
         self.config = cfg
         self.weight = float(weight)
@@ -375,7 +540,8 @@ def analytical_time(config: Config, profile: DeviceProfile,
     a card; it makes no claim about the kernel's time.
 
     'xla' is the library convolution, priced at half the float32 FMA rate
-    and the footnote-2 bytes.  'materialize' pays for the halo overlap in
+    and the footnote-2 bytes.  The bfloat16 build is priced by
+    :func:`_bf16_time`.  'materialize' pays for the halo overlap in
     bytes and is infeasible past the shared-memory or thread limits
     (``math.inf``).  Its FMA efficiency follows the register tile
     (:func:`micro_tile`): per filter row and column group a warp issues
@@ -395,6 +561,8 @@ def analytical_time(config: Config, profile: DeviceProfile,
         compute_t = flops / (0.5 * profile.peak_f32_flops)
         memory_t = conv_bytes(H, W, elt_bytes) / profile.hbm_bw
         return max(compute_t, memory_t) + profile.launch_overhead
+    if elt_bytes == 2:
+        return _bf16_time(cfg, profile, H, W, Fh, Fw)
     threads = block_threads(cfg)
     smem = smem_footprint(cfg, Fh, Fw)
     if threads > 1024 or not profile.fits_smem(smem):
@@ -417,6 +585,44 @@ def analytical_time(config: Config, profile: DeviceProfile,
     blocks = -(-H // bh) * -(-W // bw)
     waves = math.ceil(blocks / (profile.sm_count * per_sm))
     return (max(compute_t, memory_t * overlap) + waves * WAVE_OVERHEAD_S
+            + profile.launch_overhead)
+
+
+#: share of the bfloat16 tensor-core peak mma.sync reaches when it is fed
+#: (a model constant)
+MMA_SYNC_SHARE = 0.6
+
+
+def _bf16_time(cfg: Config, profile: DeviceProfile, H: int, W: int,
+               Fh: int, Fw: int) -> float:
+    """The bfloat16 build: infeasible past the thread or shared-memory
+    limits; its operations at the tensor-core rate times the band's useful
+    share, Fw / (16 * KS) (times BLOCK_H over the rows summed), and times
+    :data:`MMA_SYNC_SHARE`; or its halo bytes at 2 bytes; the larger, plus
+    per-wave overhead.  A warp's shared-memory wavefronts a product
+    (KS band fragments of 4 for RG * NB * KS products, NB + KS - 1 image
+    fragments of 2 a row group for NB * KS) slow the products where they
+    exceed one a product."""
+    threads = block_threads(cfg, 2)
+    smem = smem_footprint(cfg, Fh, Fw, 2)
+    if threads > 1024 or not profile.fits_smem(smem):
+        return math.inf
+    rg, nb, ks = warp_tile(cfg, Fh, Fw)
+    bh, bw = cfg["BLOCK_H"], cfg["BLOCK_W"]
+    useful = Fw / (16 * ks) * bh / summed_rows(cfg)
+    mmas = rg * nb * ks
+    waves_a_mma = (4 * ks + 2 * rg * (nb + ks - 1)) / mmas
+    eff = (MMA_SYNC_SHARE * useful / max(1.0, waves_a_mma)
+           * (1.0 if cfg["UNROLL"] else 0.9))
+    compute_t = conv_flops(H, W, Fh, Fw) / (profile.peak_bf16_tensor_flops
+                                            * eff)
+    dup = (1.0 + (Fh - 1) / bh) * (1.0 + (Fw - 1) / bw)
+    memory_t = H * W * 2 * (dup + 1.0) / profile.hbm_bw
+    per_sm = max(1, min(2048 // threads,
+                        profile.smem_per_block_optin // max(smem, 1)))
+    blocks = -(-H // bh) * -(-W // bw)
+    waves = math.ceil(blocks / (profile.sm_count * per_sm))
+    return (max(compute_t, memory_t) + waves * WAVE_OVERHEAD_S
             + profile.launch_overhead)
 
 

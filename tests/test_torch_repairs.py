@@ -2,8 +2,8 @@
 
 - conv2d takes bfloat16 operands, as the JAX package's kernel does: the
   plain version against the JAX Pallas conv in interpret mode at bfloat16
-  (64 x 128 image, 3 x 3 filter, the bf16 tolerance 3e-2), and a build per
-  input type (``IN_BF16``).
+  (64 x 128 image, 3 x 3, 7 x 7 and 11 x 11 filters, the bf16 tolerance
+  3e-2), and a build per input type (``IN_BF16``).
 - A wall-clock sample on CUDA times k back-to-back launches after an
   untimed one, k chosen from the warm-up launch, under an exclusive lock
   on the card (the card is simulated here: events on a clock that only
@@ -53,19 +53,21 @@ BF16_TOL = 3e-2
 
 # -- conv2d in bfloat16 ---------------------------------------------------------
 
+@pytest.mark.parametrize("filt", [(3, 3), (7, 7), (11, 11)])
 @pytest.mark.parametrize("cfg", [
     {"BLOCK_H": 16, "BLOCK_W": 128, "SUB_H": 1, "UNROLL": True,
      "HALO_MODE": "materialize"},
     {"BLOCK_H": 32, "BLOCK_W": 128, "SUB_H": 2, "UNROLL": False,
      "HALO_MODE": "materialize"}])
-def test_conv_bf16_plain_matches_pallas_interpret(cfg):
+def test_conv_bf16_plain_matches_pallas_interpret(cfg, filt):
+    fh, fw = filt
     rng = np.random.default_rng(16)
     img = rng.normal(size=(64, 128)).astype(np.float32)
-    flt = rng.normal(size=(3, 3)).astype(np.float32)
-    want = ref_conv.make_conv2d(64, 128, 3, 3, cfg, interpret=True)(
+    flt = rng.normal(size=(fh, fw)).astype(np.float32)
+    want = ref_conv.make_conv2d(64, 128, fh, fw, cfg, interpret=True)(
         jnp.asarray(img, jnp.bfloat16), jnp.asarray(flt, jnp.bfloat16))
     assert want.dtype == jnp.bfloat16
-    got = cv.make_conv2d(64, 128, 3, 3, cfg, dtype=torch.bfloat16)(
+    got = cv.make_conv2d(64, 128, fh, fw, cfg, dtype=torch.bfloat16)(
         torch.from_numpy(img).bfloat16(), torch.from_numpy(flt).bfloat16())
     assert got.dtype == torch.bfloat16 and got.shape == (64, 128)
     np.testing.assert_allclose(got.float().numpy(),
@@ -291,14 +293,17 @@ def test_elt_bytes_match_the_jax_package():
             shape = {"dtype": dtype}
             assert ref_ops._elt_bytes(shape) == width
             assert port_ops._elt_bytes(shape) == width
-    # the keys stay the JAX package's: GEMM's has the dtype, conv's has
-    # none; flash's float32 key has none, and a bfloat16 shape, whose
-    # build is the tensor cores', appends it
+    # the keys stay the JAX package's: GEMM's has the dtype; conv's and
+    # flash's float32 keys have none, and a bfloat16 shape, whose build is
+    # the tensor cores', appends it
     assert gemm_ops.shape_key(64, 64, 64, "bfloat16") == \
         ref_gemm_ops.shape_key(64, 64, 64, "bfloat16")
-    for dtype in ("float32", "bfloat16"):
-        assert cv.CONV2D.key_for({"H": 64, "W": 128, "Fh": 3, "Fw": 3,
-                                  "dtype": dtype}) == "H64_W128_F3x3"
+    conv = {"H": 64, "W": 128, "Fh": 3, "Fw": 3}
+    assert cv.CONV2D.key_for(conv) == \
+        cv.CONV2D.key_for(dict(conv, dtype="float32")) == \
+        ref_conv_ops.shape_key(64, 128, 3, 3) == "H64_W128_F3x3"
+    assert cv.CONV2D.key_for(dict(conv, dtype="bfloat16")) == \
+        "H64_W128_F3x3_bfloat16"
     flash = {"Sq": 64, "Sk": 64, "D": 64, "causal": True}
     assert fa.FLASH_ATTENTION.key_for(dict(flash, dtype="float32")) == \
         ref_flash_ops.shape_key(64, 64, 64, True) == "Sq64_Sk64_D64_c"
@@ -357,9 +362,10 @@ def test_conv_and_flash_declarations_have_one_width():
     fn = cv.CONV2D.build(CONV_BF16, cfg)
     assert fn.dtype == torch.bfloat16 and dict(fn.defines())["IN_BF16"] == 1
     f32 = dict(CONV_BF16, dtype="float32")
-    # the tile is staged as float32 for either input type
+    # each input type stages its own tile: bfloat16 the tensor cores'
     assert cv.CONV2D.smem_footprint(CONV_BF16, cfg) == \
-        cv.CONV2D.smem_footprint(f32, cfg) == cv.smem_footprint(cfg, 3, 3)
+        cv.smem_footprint(cfg, 3, 3, 2)
+    assert cv.CONV2D.smem_footprint(f32, cfg) == cv.smem_footprint(cfg, 3, 3)
     assert cv.CONV2D.analytical_model(CONV_BF16, cfg, H100_SXM) == \
         cv.analytical_time(cfg, H100_SXM, 32, 64, 3, 3, elt_bytes=2)
     assert 2 * cv.CONV2D.cost(CONV_BF16, cfg).bytes == \
