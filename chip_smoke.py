@@ -50,7 +50,16 @@ each printing its own lines:
      float32 case again with bf16 operands (the tensor-core build), against
      flash_plain (which rounds P where the build does) and the float32
      oracle of the same inputs (3e-2)
-  9. conv main path: tune_kernel(CONV2D) at 4096^2 3x3 (annealing, the
+     ragged (after the background processes are collected): every shape
+     at which the ops once refused the heuristic's config (GEMM 100^3,
+     36x52x20, 8^3, 24^3, 1000^3 and the prime 1009^3; flash at S = 16,
+     48, 100, 200 and D = 40, 80; conv 50x200 3x3) and explicit blocks
+     the JAX package takes (RAGGED_CONFIGS), in float32 and bfloat16,
+     through its op on the card: one launch a call, the result against
+     the float32 oracle and the plain version, its builds (one parallel
+     batch) against the models and without spills; each config=None case
+     timed through its op, its kernel alone and its library call
+ 9. conv main path: tune_kernel(CONV2D) at 4096^2 3x3 (annealing, the
      extended space, budget 24), lookup "exact", conv2d(config=None); then
      conv2d(config=None) at 8192x4096 with 7x7 and 11x11 (heuristic);
      conv-main-bf16: the same path in bfloat16 on the tensor cores
@@ -209,6 +218,7 @@ import argparse
 import dataclasses
 import importlib
 import json
+import logging
 import math
 import os
 import re
@@ -231,6 +241,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.analyze import (analyze_registry,  # noqa: E402
                                  proven_violations)
 from repro_torch.configs import get_config as get_model_config  # noqa: E402
+from repro_torch.core.profiles import resolve_profile  # noqa: E402
 from repro_torch.core import (H100_SXM, ArtifactStore,  # noqa: E402
                               CostModelEvaluator, LearnedPredictor, Tuner,
                               TuningCache, WallClockEvaluator, default_cache,
@@ -412,11 +423,11 @@ def time_ms(fn, device, iters=50):
     return start.elapsed_time(end) / iters
 
 
-def time_in_turns(fns, device, rounds=5, iters=50):
+def time_in_turns(fns, device, rounds=5, iters=50, warmup=3):
     """Per-name lists of ``rounds`` timed runs, the names taking turns
     (in reversed order every other round) so drift hits all alike."""
     for fn in fns.values():
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     runs = {name: [] for name in fns}
     names = list(fns)
@@ -1318,6 +1329,223 @@ def _build_space_conv_bf16(device, workers, stride=16, filt=(11, 11),
         raise AssertionError(f"bf16 conv builds: {len(spills)} spill, "
                              f"{len(bad)} disagree: {bad}; no HMMA in "
                              f"{no_hmma}")
+    return record
+
+
+#: [ragged]: shapes at which the JAX ops compute with config=None and the
+#: builds once refused the blocks the heuristics gave (GEMM (M, N, K), a
+#: prime one among them; flash (S, D) with q, k and v of length S; conv
+#: (H, W, Fh, Fw)), each run through the op in float32 and in bfloat16
+RAGGED_GEMM = [(100, 100, 100), (36, 52, 20), (8, 8, 8), (24, 24, 24),
+               (1000, 1000, 1000), (1009, 1009, 1009)]
+RAGGED_FLASH = [(16, 64), (48, 64), (100, 64), (200, 64), (64, 40), (64, 80)]
+RAGGED_CONV = [(50, 200, 3, 3)]
+#: ... and explicit configs the JAX package takes and the builds refused
+RAGGED_CONFIGS = [
+    ("gemm", (64, 64, 64), {"BLOCK_M": 8, "BLOCK_N": 64, "BLOCK_K": 16}),
+    ("gemm", (64, 64, 96), {"BLOCK_M": 32, "BLOCK_N": 32, "BLOCK_K": 24,
+                            "INNER_STEPS": 8, "ACC_DTYPE": "bfloat16"}),
+    ("flash", (128, 64), {"BLOCK_Q": 8, "BLOCK_K": 64}),
+    ("flash", (128, 64), {"BLOCK_Q": 64, "BLOCK_K": 8}),
+    ("flash", (256, 64), {"BLOCK_Q": 4, "BLOCK_K": 128}),
+    ("flash", (256, 64), {"BLOCK_Q": 16, "BLOCK_K": 16}),
+    ("conv", (64, 256, 3, 3), dict(CONV_CONFIGS[0], BLOCK_W=100)),
+    ("conv", (50, 200, 7, 7), dict(CONV_CONFIGS[0], BLOCK_H=8, BLOCK_W=50)),
+]
+
+
+def _ragged_cases(device):
+    """(kind, shape, config or None, dtype, kernel object at the config
+    the op resolves) of every [ragged] case."""
+    cases = []
+    for dtype in ("float32", "bfloat16"):
+        dt = getattr(torch, dtype)
+        for shape in RAGGED_GEMM:
+            cfg = lookup_config(*shape, resolve_profile(None, device),
+                                dtype=dt)
+            cases.append(("gemm", shape, None, dtype,
+                          make_matmul(*shape, cfg, out_dtype=dt)))
+        for S, D in RAGGED_FLASH:
+            cfg = fa.lookup_config(S, S, D, True, resolve_profile(None,
+                                                                  device),
+                                   dtype=dt)
+            cases.append(("flash", (S, D), None, dtype,
+                          fa.make_flash_attention(S, S, D, cfg, dtype=dt)))
+        for shape in RAGGED_CONV:
+            cfg = cv.lookup_config(*shape, resolve_profile(None, device),
+                                   dtype=dt)
+            cases.append(("conv", shape, None, dtype,
+                          cv.make_conv2d(*shape, cfg, dtype=dt)))
+        for kind, shape, cfg in RAGGED_CONFIGS:
+            if kind == "gemm":
+                fn = make_matmul(*shape, cfg, out_dtype=dt)
+            elif kind == "flash":
+                fn = fa.make_flash_attention(shape[0], shape[0], shape[1],
+                                             cfg, dtype=dt)
+            else:
+                fn = cv.make_conv2d(*shape, cfg, dtype=dt)
+            cases.append((kind, shape, cfg, dtype, fn))
+    return cases
+
+
+def _ragged_run(kind, shape, cfg, dtype, fn, device):
+    """One [ragged] case through its op: (inputs, op call, output, plain
+    version, float32 oracle, library call)."""
+    if kind == "gemm":
+        a, b = inputs(shape, dtype, False, device)
+        call = lambda: matmul(a, b, cfg)                        # noqa: E731
+        plain = gemm_plain(a, b, fn.config)
+        oracle = gemm_reference(a.float(), b.float())
+        library = lambda: torch.matmul(a, b)                    # noqa: E731
+    elif kind == "flash":
+        S, D = shape
+        q, k, v = flash_inputs((1,), S, S, D, dtype, device)
+        call = lambda: fa.flash_attention(q, k, v, config=cfg)  # noqa: E731
+        plain = fa.flash_plain(q, k, v, fn.config)
+        oracle = fa.attention_reference(q.float(), k.float(), v.float())
+        library = lambda: F.scaled_dot_product_attention(       # noqa: E731
+            q, k, v, is_causal=True)
+    else:
+        img, f = (x.to(getattr(torch, dtype))
+                  for x in conv_inputs(*shape, device))
+        call = lambda: cv.conv2d(img, f, config=cfg)            # noqa: E731
+        plain = cv.conv2d_plain(img, f, fn.config)
+        oracle = cv.conv2d_reference(img.float(), f.float())
+        library = lambda: F.conv2d(                             # noqa: E731
+            img[None, None], f[None, None],
+            padding=(shape[2] // 2, shape[3] // 2))
+    counter = {"gemm": LAUNCHES, "flash": fa.LAUNCHES,
+               "conv": cv.LAUNCHES}[kind]
+    before = sum(counter.values())
+    out = call()
+    sync(device)
+    launched = sum(counter.values()) - before
+    args = {"gemm": lambda: (a, b), "flash": lambda: (q, k, v),
+            "conv": lambda: (img, f)}[kind]()
+    return call, out, plain, oracle, library, launched, args
+
+
+def phase_ragged(device):
+    """Every [ragged] case through its op (config=None, or the explicit
+    config) on the hand-written kernel: one launch a call, no fallback.
+    Its builds are compiled in one parallel batch, each with its threads
+    and shared bytes against the models and no spill; each result is held
+    to the float32 oracle (the sweep's GEMM tolerance, BF16_TOL in
+    bfloat16, FLASH_TOL, CONV_TOL) and to its plain version (the sweep's
+    GEMM rule, flash_bf16_agreement, conv_bf16_agreement); each
+    config=None case is timed through its op (the lookup included: a
+    heuristic config off its space's lists is projected on every call,
+    with a warning the phase mutes) and its kernel alone, beside its
+    library call."""
+    t0 = time.perf_counter()
+    registry_log = logging.getLogger("repro_torch.registry")
+    level = registry_log.level
+    registry_log.setLevel(logging.ERROR)
+    try:
+        return _phase_ragged(device, t0)
+    finally:
+        registry_log.setLevel(level)
+
+
+def _phase_ragged(device, t0):
+    cases = _ragged_cases(device)
+    builds = {}
+    for *_, fn in cases:
+        builds.setdefault((fn.build_name, json.dumps(
+            sorted(fn.config.items())), str(fn.dtype),
+            getattr(fn, "D", None), getattr(fn, "Fw", None),
+            getattr(fn, "Fh", None)), fn)
+    record = {"builds": len(builds), "rows": [], "times": []}
+    if device.type == "cuda":
+        with ThreadPoolExecutor(len(builds)) as pool:
+            list(pool.map(lambda f: f.compile(), builds.values()))
+        record["build_s"] = time.perf_counter() - t0
+        bad = []
+        for fn in builds.values():
+            elt = fn.dtype.itemsize
+            if isinstance(fn, cv.Conv2d):
+                want = (cv.block_threads(fn.config, elt),
+                        cv.smem_footprint(fn.config, fn.Fh, fn.Fw, elt),
+                        cv.micro_tile(fn.config, fn.Fh, fn.Fw, elt))
+            elif isinstance(fn, fa.FlashAttention):
+                want = (fa.block_threads(fn.config, fn.D, elt),
+                        fa.smem_footprint(fn.config, fn.D, elt))
+            else:
+                want = (mm_kernel.block_threads(fn.config, elt),
+                        smem_footprint(fn.config, elt))
+            lines = ptxas_info(fn)
+            record.setdefault("ptxas", []).append(
+                [fn.build_name, str(fn.dtype), fn.config,
+                 _registers(lines), spill_bytes(lines)])
+            if fn.geometry() != want or spill_bytes(lines):
+                bad.append({"config": fn.config, "dtype": str(fn.dtype),
+                            "built": fn.geometry(), "modelled": want,
+                            "ptxas": lines})
+        print(f"[ragged] {len(builds)} builds in {record['build_s']:.2f} s, "
+              f"registers {sorted({p[3] for p in record['ptxas']})}; "
+              f"against the models or spilling: {bad}")
+        if bad:
+            raise AssertionError(f"[ragged] builds disagree with the models "
+                                 f"or spill: {bad}")
+    for kind, shape, cfg, dtype, fn in cases:
+        call, out, plain, oracle, library, launched, args = _ragged_run(
+            kind, shape, cfg, dtype, fn, device)
+        row = {"kind": kind, "shape": list(shape), "dtype": dtype,
+               "given": cfg, "config": fn.config, "launches": launched,
+               "finite": bool(torch.isfinite(out.float()).all()),
+               "err_plain": max_err(out, plain),
+               "err_oracle": max_err(out, oracle)}
+        if kind == "gemm":
+            atol, rtol, why = tolerance(fn.config, dtype, shape, oracle)
+            p_atol, p_rtol, bitwise = plain_tolerance(fn.config, dtype,
+                                                      plain, atol, rtol, why)
+            row["share_plain"] = ((0.0 if torch.equal(out, plain)
+                                   else float("inf")) if bitwise else
+                                  tol_share(out, plain, p_atol, p_rtol))
+        elif kind == "flash":
+            atol = rtol = BF16_TOL if dtype == "bfloat16" else FLASH_TOL
+            why = "bf16 test tolerance" if dtype == "bfloat16" else \
+                "JAX attention tests"
+            if dtype == "bfloat16":
+                row["share_plain"], row["differ_plain"] = \
+                    flash_bf16_agreement(out, plain)
+            else:
+                row["share_plain"] = tol_share(out, plain, atol, rtol)
+        else:
+            atol = rtol = BF16_TOL if dtype == "bfloat16" else CONV_TOL
+            why = "bf16 test tolerance" if dtype == "bfloat16" else \
+                "JAX conv tests"
+            if dtype == "bfloat16":
+                row["share_plain"], row["differ_plain"] = \
+                    conv_bf16_agreement(out, plain)
+            else:
+                row["share_plain"] = tol_share(out, plain, atol, rtol)
+        row.update(share_oracle=tol_share(out, oracle, atol, rtol),
+                   tol_oracle=[atol, rtol], tol_why=why)
+        differ = CONV_BF16_DIFFER if kind == "conv" else FLASH_BF16_DIFFER
+        if device.type == "cuda" and launched != 1:
+            raise AssertionError(f"[ragged] {kind} {shape} launched "
+                                 f"{launched} kernels: {row}")
+        record["rows"].append(row)
+        _check_row(dict(row, case=f"{kind} {shape} {dtype}"), kind,
+                   tag="ragged", differ=differ)
+        if cfg is None and device.type == "cuda":
+            # about 20 ms a run; one call a run where a call takes longer
+            # (a prime dim's blocks of 1)
+            once = time_ms(call, device, iters=1)
+            iters = max(1, min(50, int(20.0 / max(once, 1e-3))))
+            runs = time_in_turns({"op": call, "kernel": lambda: fn(*args),
+                                  "library": library}, device,
+                                 rounds=2, iters=iters, warmup=1)
+            rec = {"kind": kind, "shape": list(shape), "dtype": dtype,
+                   "config": fn.config, "iters": iters,
+                   "ms": min(runs["op"]), "kernel_ms": min(runs["kernel"]),
+                   "library_ms": min(runs["library"])}
+            record["times"].append(rec)
+            print("[ragged-times] " + json.dumps(rec))
+    record["seconds"] = time.perf_counter() - t0
+    print(f"[ragged] {len(record['rows'])} cases, {record['builds']} builds, "
+          f"{record['seconds']:.1f} s")
     return record
 
 
@@ -4011,6 +4239,7 @@ def main(argv=None):
             ("flash_sweep", lambda: phase_flash_sweep(fcases, flash_fns,
                                                       big_s, device)),
             ("background", lambda: collect_background(background)),
+            ("ragged", lambda: phase_ragged(device)),
             ("conv_main", lambda: phase_conv_main(conv_main, conv_big, device,
                                                   conv_budget)),
             ("conv_main_bf16", lambda: phase_conv_main_bf16(

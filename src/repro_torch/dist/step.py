@@ -24,6 +24,7 @@ from typing import Any, Mapping, Optional
 import torch
 
 from .sharding import _is_dtensor, per_batch
+from ..kernels.matmul.ops import tuning_space as gemm_space
 from ..models.model import (DEFAULT_RUN, RunConfig, decode_step, forward,
                             loss_fn)
 from ..models.params import (resolve_device, torch_dtype, tree_leaves,
@@ -167,7 +168,10 @@ def apply_kernel_configs(cfg, run: RunConfig,
     becomes the head's vocab tile (:attr:`RunConfig.head_chunk`) when it
     divides the vocab — so a tuned (or hot-swapped) winner changes the
     step, not just bookkeeping.  An explicit ``head_chunk`` on ``run``
-    always wins; infeasible tiles fall back to the unchunked head.
+    always wins; infeasible tiles fall back to the unchunked head, and so
+    does a block that is no tile of the GEMM's spaces: the heuristic's
+    divisor of a vocab no listed tile divides (113 of 49,155), where the
+    JAX package's heuristic takes the whole vocab and chunks nothing.
     """
     if not kernel_configs or run.head_chunk:
         return run
@@ -177,7 +181,8 @@ def apply_kernel_configs(cfg, run: RunConfig,
     except (TypeError, ValueError):
         return run
     V = cfg.vocab_size
-    if 0 < block_n < V and V % block_n == 0:
+    tiles = gemm_space(extended=True)[0]["BLOCK_N"]
+    if 0 < block_n < V and V % block_n == 0 and block_n in tiles:
         return dataclasses.replace(run, head_chunk=block_n)
     return run
 

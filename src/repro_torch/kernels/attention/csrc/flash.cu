@@ -22,6 +22,20 @@
 //   D               head width
 //   IN_BF16         q, k, v and the output are bfloat16 (else float32);
 //                   scores, softmax and sums are float32 either way
+//   RAGGED          1: the blocks or D are not what the threads tile
+//                   (flash.py::ragged); the build then names its tile:
+//   TILE_Q, TILE_K, TILE_D  the query rows, keys and head width the threads
+//                   cover (flash.py::tile), and in float32 THREADS_K (TK)
+//
+// Ragged blocks (RAGGED): the grid keeps one block per BLOCK_Q rows and the
+// loop steps BLOCK_K keys; D stays the rows' length in memory and the
+// scale's.  The tile past the block holds the next KV block's keys, so it
+// is never read from memory: Q, K and V rows and dims past the block and D
+// are zeros in shared memory (cp.async src-size 0 where rows are whole
+// 16-byte chunks, element by element where not), a key past BLOCK_K scores
+// -inf before the softmax, so its P is exactly 0 and l and the sums are
+// those of flash_plain's BLOCK_K walk, and rows past BLOCK_Q and dims past
+// D are not stored (one element a store).  Every other build is unchanged.
 //
 // Both builds stage K and V through a ring of PIPELINE_DEPTH stages filled
 // with cp.async 16-byte copies: the copy of step t + PIPELINE_DEPTH - 1 is
@@ -114,12 +128,32 @@
 
 constexpr int cmin(int a, int b) { return a < b ? a : b; }
 
-constexpr int BQ = BLOCK_Q;
-constexpr int BK = BLOCK_K;
+#ifndef RAGGED
+#define RAGGED 0
+#endif
+#ifndef TILE_Q
+#define TILE_Q BLOCK_Q
+#endif
+#ifndef TILE_K
+#define TILE_K BLOCK_K
+#endif
+#ifndef TILE_D
+#define TILE_D D
+#endif
+
+// the block: the grid's step and the KV loop's
+constexpr int XQ = BLOCK_Q, XK = BLOCK_K;
+// the tile the threads cover (the block and D, unless RAGGED)
+constexpr int BQ = TILE_Q;
+constexpr int BK = TILE_K;
+constexpr int DP = TILE_D;
 constexpr int STAGES = PIPELINE_DEPTH;
 constexpr float NEG = -1e30f;
 
 static_assert(STAGES >= 2, "at least two K/V stages");
+static_assert(BQ >= XQ && BK >= XK && DP >= D, "the tile covers the block");
+static_assert(RAGGED || (BQ == XQ && BK == XK && DP == D),
+              "only a ragged build has a tile larger than its block");
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
     const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -136,6 +170,48 @@ __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
+#if RAGGED
+// 16 bytes, or zeros (src-size 0, nothing read) where `in` is false
+__device__ __forceinline__ void cp_async16z(void* dst, const void* src,
+                                            bool in) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(s), "l"(src), "r"(in ? 16 : 0));
+}
+
+__device__ __forceinline__ float zero_of(float) { return 0.f; }
+__device__ __forceinline__ __nv_bfloat16 zero_of(__nv_bfloat16) {
+    return __float2bfloat16_rn(0.f);
+}
+
+// ROWS tile rows of DP elements into shared rows of STRIDE elements from
+// rows of D elements in memory: the first `valid` rows and D dims, zeros
+// in the rest.  16-byte copies where rows are whole 16-byte chunks, else
+// element by element (elem: float or __nv_bfloat16)
+template <int ROWS, int STRIDE, typename T>
+__device__ __forceinline__ void copy_rows_masked(T* dst, const T* src,
+                                                 int valid, int tid,
+                                                 int nthreads) {
+    constexpr int VEC = 16 / (int)sizeof(T);
+    if constexpr (D % VEC == 0) {
+        constexpr int CPR = DP / VEC;
+        for (int i = tid; i < ROWS * CPR; i += nthreads) {
+            const int r = i / CPR, c = i % CPR;
+            const bool in = r < valid && c * VEC < D;
+            cp_async16z(dst + r * STRIDE + c * VEC,
+                        in ? src + (size_t)r * D + c * VEC : src, in);
+        }
+    } else {
+        for (int i = tid; i < ROWS * DP; i += nthreads) {
+            const int r = i / DP, c = i % DP;
+            dst[r * STRIDE + c] = r < valid && c < D
+                                      ? src[(size_t)r * D + c]
+                                      : zero_of(T());
+        }
+    }
+}
+#endif
+
 #if IN_BF16
 // ---------------------------------------------------------------------------
 // bfloat16: mma.sync on the tensor cores
@@ -146,25 +222,31 @@ typedef __nv_bfloat16 elem_t;
 constexpr int WARPS = BQ / 16;                    // 16 query rows a warp
 constexpr int NTHREADS = 32 * WARPS;
 constexpr int VEC = 8;                            // elements in 16 bytes
-constexpr int STRIDE = D + VEC;                   // Q, K, V rows: 16 B pad
+constexpr int STRIDE = DP + VEC;                  // Q, K, V rows: 16 B pad
 constexpr int NT = BK / 8;                        // n8 tiles of scores
-constexpr int DT = D / 8;                         // n8 tiles of the output
+constexpr int DT = DP / 8;                        // n8 tiles of the output
 constexpr int SMEM_BYTES = (BQ + 2 * STAGES * BK) * STRIDE * 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
-static_assert(BQ % 16 == 0 && BK % 16 == 0 && D % 16 == 0,
-              "BLOCK_Q, BLOCK_K and D must be multiples of 16 (mma tiles)");
+static_assert(BQ % 16 == 0 && BK % 16 == 0 && DP % 16 == 0,
+              "the tile's rows, keys and D must be multiples of 16 (mma "
+              "tiles)");
 static_assert(NTHREADS <= 512, "at most 512 threads per block");
 
 // cp.async of ROWS rows of D elements into shared rows of STRIDE elements
+// (RAGGED: the first `valid` rows and D dims, zeros in the rest of the tile)
 template <int ROWS>
 __device__ __forceinline__ void copy_rows(elem_t* dst, const elem_t* src,
-                                          int tid) {
+                                          int tid, int valid) {
+#if RAGGED
+    copy_rows_masked<ROWS, STRIDE>(dst, src, valid, tid, NTHREADS);
+#else
     constexpr int CPR = D / VEC;                  // 16-byte chunks a row
     for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
         const int r = i / CPR, c = i % CPR;
         cp_async16(dst + r * STRIDE + c * VEC, src + (size_t)r * D + c * VEC);
     }
+#endif
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -210,7 +292,7 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
     elem_t* Vs = Ks + STAGES * BK * STRIDE;     // [STAGES][BK][STRIDE]
 
     // the longest query blocks (the last ones, when causal) start first
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * XQ;
     const size_t head = blockIdx.y;
     q += (head * Sq + q0) * D;
     o += (head * Sq + q0) * D;
@@ -222,15 +304,17 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
     const int shift = Sk - Sq;               // query ends align with KV end
     int k_end = Sk;                          // the rule of flash.py::kv_end
     if (causal && q0 + shift >= 0)
-        k_end = min(Sk, (q0 + BQ + shift + BK - 1) / BK * BK);
-    const int nkv = k_end / BK;
+        k_end = min(Sk, (q0 + XQ + shift + XK - 1) / XK * XK);
+    const int nkv = k_end / XK;
 
-    copy_rows<BQ>(Qs, q, tid);
+    copy_rows<BQ>(Qs, q, tid, XQ);
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < nkv) {
-            copy_rows<BK>(Ks + s * BK * STRIDE, k + (size_t)s * BK * D, tid);
-            copy_rows<BK>(Vs + s * BK * STRIDE, v + (size_t)s * BK * D, tid);
+            copy_rows<BK>(Ks + s * BK * STRIDE, k + (size_t)s * XK * D, tid,
+                          XK);
+            copy_rows<BK>(Vs + s * BK * STRIDE, v + (size_t)s * XK * D, tid,
+                          XK);
         }
         cp_async_commit();
     }
@@ -263,16 +347,16 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
             const int nt = t + STAGES - 1;
             if (nt < nkv) {
                 const int b = nt % STAGES;
-                copy_rows<BK>(Ks + b * BK * STRIDE, k + (size_t)nt * BK * D,
-                              tid);
-                copy_rows<BK>(Vs + b * BK * STRIDE, v + (size_t)nt * BK * D,
-                              tid);
+                copy_rows<BK>(Ks + b * BK * STRIDE, k + (size_t)nt * XK * D,
+                              tid, XK);
+                copy_rows<BK>(Vs + b * BK * STRIDE, v + (size_t)nt * XK * D,
+                              tid, XK);
             }
             cp_async_commit();
         }
         const elem_t* Kt = Ks + (t % STAGES) * BK * STRIDE;
         const elem_t* Vt = Vs + (t % STAGES) * BK * STRIDE;
-        const int k0 = t * BK;
+        const int k0 = t * XK;
 
         // S = Q K^T: the warp's 16 rows x BK keys
         float s[NT][4];
@@ -281,7 +365,7 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < D; kk += 16) {
+        for (int kk = 0; kk < DP; kk += 16) {
             unsigned a[4];
             ldsm_x4(a, qa + kk);
 #pragma unroll
@@ -294,8 +378,9 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
         }
 
         // mask only where the KV block crosses the diagonal; element e of
-        // tile j is row g + 8 (e / 2), key k0 + 8 j + c2 + e % 2
-        const bool masked = causal && k0 + BK - 1 > q0 + shift;
+        // tile j is row g + 8 (e / 2), key k0 + 8 j + c2 + e % 2 (RAGGED:
+        // keys past the block score -inf)
+        const bool masked = causal && k0 + XK - 1 > q0 + shift;
         float mc[2] = {-INFINITY, -INFINITY};
 #pragma unroll
         for (int j = 0; j < NT; ++j)
@@ -304,6 +389,9 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
                 float x = s[j][e] * scale2;
                 if (masked && qpos + 8 * (e >> 1) < k0 + 8 * j + c2 + (e & 1))
                     x = NEG;
+#if RAGGED
+                if (8 * j + c2 + (e & 1) >= XK) x = -INFINITY;
+#endif
                 s[j][e] = x;
                 mc[e >> 1] = fmaxf(mc[e >> 1], x);
             }
@@ -340,7 +428,7 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
                 pack_bf16(s[2 * kt + 1][0], s[2 * kt + 1][1]),
                 pack_bf16(s[2 * kt + 1][2], s[2 * kt + 1][3])};
 #pragma unroll
-            for (int dp = 0; dp < D / 16; ++dp) {
+            for (int dp = 0; dp < DP / 16; ++dp) {
                 unsigned b[4];
                 ldsm_x4_t(b, Vt + kt * 16 * STRIDE + v_off + dp * 16);
                 mma_k16(acc[2 * dp], a, b[0], b[1]);
@@ -359,11 +447,23 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < DT; ++j)
 #pragma unroll
-        for (int h = 0; h < 2; ++h)
+        for (int h = 0; h < 2; ++h) {
+#if RAGGED
+            const int row = r0 + g + 8 * h;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const int col = 8 * j + c2 + e;
+                if (row < XQ && col < D)
+                    o[(size_t)row * D + col] =
+                        __float2bfloat16_rn(acc[j][2 * h + e] / l[h]);
+            }
+#else
             *reinterpret_cast<__nv_bfloat162*>(
                 o + (size_t)(r0 + g + 8 * h) * D + 8 * j + c2) =
                 __floats2bfloat162_rn(acc[j][2 * h] / l[h],
                                       acc[j][2 * h + 1] / l[h]);
+#endif
+        }
 }
 
 #else
@@ -374,22 +474,27 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
 typedef float elem_t;
 __device__ __forceinline__ elem_t from_f32(float x) { return x; }
 
-constexpr int TM = BQ >= 128 ? 8 : 4;            // query rows a thread
+constexpr int TM = XQ >= 128 ? 8 : 4;            // query rows a thread
+#ifdef THREADS_K
+constexpr int TK = THREADS_K;                     // flash.py::_threads_k
+#else
 constexpr int TK = cmin(cmin(BK / 4, 32), D / 4); // threads sharing the rows
+#endif
 constexpr int TN = BK / TK;                       // keys a thread
-constexpr int TD = D / TK;                        // output dims a thread
+constexpr int TD = DP / TK;                       // output dims a thread
 constexpr int GROUPS = BQ / TM;
 constexpr int NTHREADS = GROUPS * TK;
 constexpr int ESZ = (int)sizeof(elem_t);
 constexpr int VEC = 16 / ESZ;                     // elements in 16 bytes
-constexpr int QK_STRIDE = D + VEC;                // Q and K rows: 16 B pad
+constexpr int QK_STRIDE = DP + VEC;               // Q and K rows: 16 B pad
 constexpr int P_STRIDE = BK + 4;                  // P rows (float32)
 constexpr int SMEM_BYTES = BQ * P_STRIDE * 4
-    + (BQ * QK_STRIDE + STAGES * BK * (QK_STRIDE + D)) * ESZ;
+    + (BQ * QK_STRIDE + STAGES * BK * (QK_STRIDE + DP)) * ESZ;
 
 static_assert(TK >= 1 && 32 % TK == 0, "a row group lies in one warp");
-static_assert(BQ % TM == 0 && BK % TK == 0, "blocks divide the tiles");
-static_assert(TD % 4 == 0 && D % VEC == 0, "D a multiple of 4 * TK");
+static_assert(BQ % TM == 0 && BK % TK == 0 && BK % 4 == 0,
+              "the tile divides into the threads' tiles");
+static_assert(TD % 4 == 0 && DP % VEC == 0, "D a multiple of 4 * TK");
 static_assert(NTHREADS % 32 == 0, "whole warps");
 static_assert(NTHREADS <= 512, "at most 512 threads per block");
 
@@ -406,14 +511,19 @@ __device__ __forceinline__ void load4(const elem_t* p, float* out) {
 }
 
 // cp.async of ROWS rows of D elements into shared rows of STRIDE elements
+// (RAGGED: the first `valid` rows and D dims, zeros in the rest of the tile)
 template <int ROWS, int STRIDE>
 __device__ __forceinline__ void copy_rows(elem_t* dst, const elem_t* src,
-                                          int tid) {
+                                          int tid, int valid) {
+#if RAGGED
+    copy_rows_masked<ROWS, STRIDE>(dst, src, valid, tid, NTHREADS);
+#else
     constexpr int CPR = D / VEC;                  // 16-byte chunks a row
     for (int i = tid; i < ROWS * CPR; i += NTHREADS) {
         const int r = i / CPR, c = i % CPR;
         cp_async16(dst + r * STRIDE + c * VEC, src + (size_t)r * D + c * VEC);
     }
+#endif
 }
 
 // ask ptxas for two resident blocks where their shared memory fits the
@@ -432,7 +542,7 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
     elem_t* Vs = Ks + STAGES * BK * QK_STRIDE;  // [STAGES][BK][D]
 
     // the longest query blocks (the last ones, when causal) start first
-    const int q0 = (gridDim.x - 1 - blockIdx.x) * BQ;
+    const int q0 = (gridDim.x - 1 - blockIdx.x) * XQ;
     const size_t head = blockIdx.y;
     q += (head * Sq + q0) * D;
     o += (head * Sq + q0) * D;
@@ -444,16 +554,17 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
     const int shift = Sk - Sq;               // query ends align with KV end
     int k_end = Sk;                          // the rule of flash.py::kv_end
     if (causal && q0 + shift >= 0)
-        k_end = min(Sk, (q0 + BQ + shift + BK - 1) / BK * BK);
-    const int nkv = k_end / BK;
+        k_end = min(Sk, (q0 + XQ + shift + XK - 1) / XK * XK);
+    const int nkv = k_end / XK;
 
-    copy_rows<BQ, QK_STRIDE>(Qs, q, tid);
+    copy_rows<BQ, QK_STRIDE>(Qs, q, tid, XQ);
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < nkv) {
             copy_rows<BK, QK_STRIDE>(Ks + s * BK * QK_STRIDE,
-                                     k + (size_t)s * BK * D, tid);
-            copy_rows<BK, D>(Vs + s * BK * D, v + (size_t)s * BK * D, tid);
+                                     k + (size_t)s * XK * D, tid, XK);
+            copy_rows<BK, DP>(Vs + s * BK * DP, v + (size_t)s * XK * D, tid,
+                              XK);
         }
         cp_async_commit();
     }
@@ -477,15 +588,15 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
             if (nt < nkv) {
                 const int b = nt % STAGES;
                 copy_rows<BK, QK_STRIDE>(Ks + b * BK * QK_STRIDE,
-                                         k + (size_t)nt * BK * D, tid);
-                copy_rows<BK, D>(Vs + b * BK * D, v + (size_t)nt * BK * D,
-                                 tid);
+                                         k + (size_t)nt * XK * D, tid, XK);
+                copy_rows<BK, DP>(Vs + b * BK * DP, v + (size_t)nt * XK * D,
+                                  tid, XK);
             }
             cp_async_commit();
         }
         const elem_t* Kt = Ks + (t % STAGES) * BK * QK_STRIDE;
-        const elem_t* Vt = Vs + (t % STAGES) * BK * D;
-        const int k0 = t * BK;
+        const elem_t* Vt = Vs + (t % STAGES) * BK * DP;
+        const int k0 = t * XK;
 
         // S = Q K^T for rows ty*TM + i, keys tx + j*TK
         float s[TM][TN];
@@ -494,7 +605,7 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
 #pragma unroll
             for (int j = 0; j < TN; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-        for (int d0 = 0; d0 < D; d0 += VEC) {
+        for (int d0 = 0; d0 < DP; d0 += VEC) {
             float kf[TN][VEC];
 #pragma unroll
             for (int j = 0; j < TN; ++j)
@@ -511,8 +622,9 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
             }
         }
 
-        // mask only where the KV block crosses the diagonal
-        const bool masked = causal && k0 + BK - 1 > q0 + shift;
+        // mask only where the KV block crosses the diagonal (RAGGED: keys
+        // past the block score -inf)
+        const bool masked = causal && k0 + XK - 1 > q0 + shift;
 #pragma unroll
         for (int i = 0; i < TM; ++i) {
             const int qpos = q0 + ty * TM + i + shift;
@@ -521,6 +633,9 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
             for (int j = 0; j < TN; ++j) {
                 float x = s[i][j] * scale;
                 if (masked && qpos < k0 + tx + j * TK) x = NEG;
+#if RAGGED
+                if (tx + j * TK >= XK) x = -INFINITY;
+#endif
                 s[i][j] = x;
                 mc = fmaxf(mc, x);
             }
@@ -562,7 +677,7 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
                 float vf[TD];
 #pragma unroll
                 for (int g = 0; g < TD / 4; ++g)
-                    load4(Vt + (c0 + cc) * D + g * 4 * TK + 4 * tx,
+                    load4(Vt + (c0 + cc) * DP + g * 4 * TK + 4 * tx,
                           vf + 4 * g);
 #pragma unroll
                 for (int i = 0; i < TM; ++i)
@@ -580,8 +695,13 @@ flash_kernel(const elem_t* __restrict__ q, const elem_t* __restrict__ k,
 #pragma unroll
         for (int g = 0; g < TD / 4; ++g)
 #pragma unroll
-            for (int e = 0; e < 4; ++e)
+            for (int e = 0; e < 4; ++e) {
+#if RAGGED
+                if (ty * TM + i >= XQ || 4 * tx + g * 4 * TK + e >= D)
+                    continue;
+#endif
                 orow[g * 4 * TK + e] = from_f32(acc[i][4 * g + e] / denom);
+            }
     }
 }
 #endif
@@ -591,8 +711,9 @@ extern "C" {
 // Launch on `stream` (a cudaStream_t) of CUDA device `device`; does not
 // synchronise.  Returns a cudaError_t: 0 when the launch was accepted.
 // q and o are (heads, Sq, D), k and v (heads, Sk, D), contiguous and
-// 16-byte aligned, on `device`; the caller guarantees BLOCK_Q | Sq and
-// BLOCK_K | Sk.
+// starting on 16-byte boundaries, on `device`; the caller guarantees
+// BLOCK_Q | Sq and BLOCK_K | Sk (any blocks that divide them, at any D:
+// flash.py::ragged picks the build that masks its tile).
 int flash_launch(const void* q, const void* k, const void* v, void* o,
                  int heads, int Sq, int Sk, int causal, float scale,
                  int device, void* stream) {
@@ -602,7 +723,7 @@ int flash_launch(const void* q, const void* k, const void* v, void* o,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
-    const dim3 grid(Sq / BQ, heads);
+    const dim3 grid(Sq / XQ, heads);
     flash_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
         (const elem_t*)q, (const elem_t*)k, (const elem_t*)v, (elem_t*)o,
         Sq, Sk, causal, scale);

@@ -17,7 +17,10 @@ Tunables (the JAX package's names; values re-derived for the card in
 
 One build per input type, each bound by its multiplications
 (:func:`geometry`, :func:`smem_footprint` and :func:`register_estimate`
-take the element width and describe that build):
+take the element width and describe that build).  Every block that
+divides the sequences builds, at any head width: the threads cover a
+:func:`tile`, the blocks and D rounded up to the geometry, whose excess
+is masked (zeros in shared memory, scores of -inf, nothing stored).
 
 * float32: FMA work.  Each thread keeps a TM x TN tile of the scores and
   a TM x TD tile of the output in registers; TK threads share a row group
@@ -88,25 +91,65 @@ def _merged(config: Optional[Config]) -> Config:
     return cfg
 
 
-def geometry(config: Config, D: int, elt_bytes: int = 4) -> Dict[str, int]:
-    """The thread geometry the build for ``elt_bytes``-wide inputs derives
-    (``csrc/flash.cu``).
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
 
-    float32: TM query rows a thread (8 when BLOCK_Q >= 128, else 4); TK
-    threads share them, TK = min(BLOCK_K/4, 32, D/4); each thread owns TN
-    = BLOCK_K/TK keys of the scores and TD = D/TK dims of the output.
-    bfloat16: each of WARPS = BLOCK_Q/16 warps owns 16 query rows as NT =
-    BLOCK_K/8 score tiles and DT = D/8 output tiles of 16 x 8 (float32
-    mma fragments)."""
+
+def _threads_k(bk: int, D: int) -> int:
+    """TK of the float32 build: the largest power of two not above
+    ceil(BLOCK_K / 4), 32 and ceil(D / 4)."""
+    n = min(-(-bk // 4), 32, -(-D // 4))
+    return 1 << (n.bit_length() - 1)
+
+
+def tile(config: Config, D: int, elt_bytes: int = 4) -> Tuple[int, int, int]:
+    """(TILE_Q, TILE_K, TILE_D): the query rows, keys and head width one
+    block of the build for ``elt_bytes``-wide inputs covers.
+
+    The blocks and D rounded up to what the thread geometry tiles:
+    bfloat16 to the mma's 16; float32 BLOCK_K to a multiple of 4 and of TK,
+    D to 4 * TK and BLOCK_Q to the TM-row groups of whole warps (TM * 32 /
+    TK rows).  The grid keeps one block per BLOCK_Q rows and the loop steps
+    BLOCK_K keys; the rows, keys and dims past the block and D are zeros
+    in shared memory, the keys' scores -inf, and none is stored.  Where the
+    geometry tiles the blocks and D exactly, the tile is (BLOCK_Q,
+    BLOCK_K, D)."""
     bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
     if elt_bytes == 2:
-        warps = max(1, bq // 16)
-        return {"WARPS": warps, "NT": bk // 8, "DT": D // 8,
-                "threads": 32 * warps}
+        return _round_up(bq, 16), _round_up(bk, 16), _round_up(D, 16)
     tm = 8 if bq >= 128 else 4
-    tk = max(1, min(bk // 4, 32, D // 4))
-    return {"TM": tm, "TK": tk, "TN": bk // tk, "TD": D // tk,
-            "threads": (bq // tm) * tk}
+    tk = _threads_k(bk, D)
+    return (_round_up(bq, tm * 32 // tk), _round_up(bk, max(4, tk)),
+            _round_up(D, 4 * tk))
+
+
+def geometry(config: Config, D: int, elt_bytes: int = 4) -> Dict[str, int]:
+    """The thread geometry the build for ``elt_bytes``-wide inputs derives
+    (``csrc/flash.cu``) over its :func:`tile` (TILE_Q, TILE_K, TILE_D).
+
+    float32: TM query rows a thread (8 when BLOCK_Q >= 128, else 4); TK
+    threads share them (:func:`_threads_k`: min(BLOCK_K/4, 32, D/4) where
+    those are powers of two); each thread owns TN = TILE_K/TK keys of the
+    scores and TD = TILE_D/TK dims of the output.  bfloat16: each of
+    WARPS = TILE_Q/16 warps owns 16 query rows as NT = TILE_K/8 score
+    tiles and DT = TILE_D/8 output tiles of 16 x 8 (float32 mma
+    fragments)."""
+    tq, tkeys, td = tile(config, D, elt_bytes)
+    if elt_bytes == 2:
+        warps = tq // 16
+        return {"WARPS": warps, "NT": tkeys // 8, "DT": td // 8,
+                "threads": 32 * warps}
+    tm = 8 if config["BLOCK_Q"] >= 128 else 4
+    tk = _threads_k(config["BLOCK_K"], D)
+    return {"TM": tm, "TK": tk, "TN": tkeys // tk, "TD": td // tk,
+            "threads": (tq // tm) * tk}
+
+
+def ragged(config: Config, D: int, elt_bytes: int = 4) -> bool:
+    """Whether the build masks its tile (``RAGGED`` in the source): the
+    :func:`tile` exceeds the blocks or D."""
+    return tile(config, D, elt_bytes) != (config["BLOCK_Q"],
+                                          config["BLOCK_K"], D)
 
 
 def block_threads(config: Config, D: int, elt_bytes: int = 4) -> int:
@@ -116,8 +159,8 @@ def block_threads(config: Config, D: int, elt_bytes: int = 4) -> int:
 def register_estimate(config: Config, D: int, elt_bytes: int = 4) -> int:
     """32-bit registers a thread needs, roughly.  float32: the score and
     output tiles, m and l, one K vector a key and 32 for addresses and
-    loop state.  bfloat16: the score and output fragments (BLOCK_K/2 and
-    D/2 floats a lane) and 64 for the Q, K, V and P fragments of one
+    loop state.  bfloat16: the score and output fragments (TILE_K/2 and
+    TILE_D/2 floats a lane) and 64 for the Q, K, V and P fragments of one
     product, m and l of two rows, addresses and loop state."""
     g = geometry(config, D, elt_bytes)
     if elt_bytes == 2:
@@ -126,17 +169,18 @@ def register_estimate(config: Config, D: int, elt_bytes: int = 4) -> int:
 
 
 def smem_footprint(config: Config, D: int, elt_bytes: int = 4) -> int:
-    """Bytes of shared memory one block claims.  float32: P (BLOCK_Q x
-    BLOCK_K, rows padded by 4), Q, and PIPELINE_DEPTH stages of K and V (Q
-    and K rows padded by 16 bytes).  bfloat16: Q and PIPELINE_DEPTH stages
-    of K and V, every row padded by 16 bytes; no P."""
-    bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
+    """Bytes of shared memory one block claims, over its :func:`tile`.
+    float32: P (TILE_Q x TILE_K, rows padded by 4), Q, and PIPELINE_DEPTH
+    stages of K and V (Q and K rows padded by 16 bytes).  bfloat16: Q and
+    PIPELINE_DEPTH stages of K and V, every row padded by 16 bytes; no
+    P."""
+    tq, tk, td = tile(config, D, elt_bytes)
     depth = int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
-    qk_row = D * elt_bytes + 16
+    qk_row = td * elt_bytes + 16
     if elt_bytes == 2:
-        return (bq + 2 * depth * bk) * qk_row
-    return (4 * bq * (bk + 4) + bq * qk_row
-            + depth * bk * (qk_row + D * elt_bytes))
+        return (tq + 2 * depth * tk) * qk_row
+    return (4 * tq * (tk + 4) + tq * qk_row
+            + depth * tk * (qk_row + td * elt_bytes))
 
 
 def kv_end(q0: int, config: Config, Sq: int, Sk: int,
@@ -157,36 +201,35 @@ def kv_end(q0: int, config: Config, Sq: int, Sk: int,
 
 def validate_config(config: Config, Sq: int, Sk: int, D: int,
                     elt_bytes: int = 4) -> None:
-    """Raise ``ValueError`` on what the build for ``elt_bytes``-wide
-    inputs cannot tile."""
+    """Raise ``ValueError`` on blocks that do not divide the sequences (as
+    the JAX package does) and on what the card cannot run: fewer than two
+    stages, or more than :data:`MAX_THREADS` threads in the build for
+    ``elt_bytes``-wide inputs."""
     bq, bk = config["BLOCK_Q"], config["BLOCK_K"]
-    if Sq % bq or Sk % bk:
+    if min(bq, bk) < 1 or Sq % bq or Sk % bk:
         raise ValueError(f"({Sq},{Sk}) not divisible by blocks ({bq},{bk})")
     depth = int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
     if depth < 2:
         raise ValueError(f"PIPELINE_DEPTH={depth}: the ring needs 2 stages")
-    g = geometry(config, D, elt_bytes)
-    if elt_bytes == 2:
-        if bq % 16 or bk % 16 or D % 16:
-            raise ValueError(f"the bfloat16 build takes blocks ({bq},{bk}) "
-                             f"and D={D} in multiples of 16 (mma tiles)")
-    elif (bk % 4 or D % 8 or bq % g["TM"] or D % (4 * g["TK"])
-            or 32 % g["TK"]):
-        raise ValueError(f"blocks ({bq},{bk}) at D={D} do not tile into "
-                         f"the kernel's {g} geometry")
-    if g["threads"] % 32:
-        raise ValueError(f"BLOCK_Q={bq}, BLOCK_K={bk}: {g['threads']} "
-                         "threads, not whole warps")
-    if g["threads"] > MAX_THREADS:
-        raise ValueError(f"BLOCK_Q={bq}, BLOCK_K={bk} need {g['threads']} "
+    threads = block_threads(config, D, elt_bytes)
+    if threads > MAX_THREADS:
+        raise ValueError(f"BLOCK_Q={bq}, BLOCK_K={bk} need {threads} "
                          f"threads; the kernel takes at most {MAX_THREADS}")
 
 
 def _defines(cfg: Config, D: int, dtype: torch.dtype) -> Dict[str, int]:
-    return {"BLOCK_Q": cfg["BLOCK_Q"], "BLOCK_K": cfg["BLOCK_K"], "D": D,
-            "PIPELINE_DEPTH": int(cfg.get("PIPELINE_DEPTH",
-                                          DEFAULT_PIPELINE_DEPTH)),
-            "IN_BF16": int(dtype == torch.bfloat16)}
+    """The build's -D defines; a :func:`ragged` build also names its tile
+    (and, in float32, TK, which the build cannot derive from the tile)."""
+    defines = {"BLOCK_Q": cfg["BLOCK_Q"], "BLOCK_K": cfg["BLOCK_K"], "D": D,
+               "PIPELINE_DEPTH": int(cfg.get("PIPELINE_DEPTH",
+                                             DEFAULT_PIPELINE_DEPTH)),
+               "IN_BF16": int(dtype == torch.bfloat16)}
+    if ragged(cfg, D, dtype.itemsize):
+        tq, tk, td = tile(cfg, D, dtype.itemsize)
+        defines.update(RAGGED=1, TILE_Q=tq, TILE_K=tk, TILE_D=td)
+        if dtype == torch.float32:
+            defines["THREADS_K"] = _threads_k(cfg["BLOCK_K"], D)
+    return defines
 
 
 def flash_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

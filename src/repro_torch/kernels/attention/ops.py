@@ -28,7 +28,7 @@ from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
 from .flash import (DTYPES, SOURCE, analytical_time, block_threads,
                     make_flash_attention, register_estimate, smem_footprint,
-                    traffic, validate_config)
+                    tile, traffic, validate_config)
 from .ref import attention_reference
 
 KERNEL_NAME = "flash_attention"
@@ -63,34 +63,41 @@ def shape_key(Sq: int, Sk: int, D: int, causal: bool = True,
     return key + ("_bfloat16" if _dtype_name(dtype) == "bfloat16" else "")
 
 
+def _divisors_down(d: int, top: int):
+    """The divisors of ``d`` not above ``top``, largest first (1 divides
+    every length)."""
+    return [c for c in range(min(d, top), 0, -1) if d % c == 0]
+
+
 def heuristic_config(Sq: int, Sk: int, D: int = 128) -> Dict[str, Any]:
-    """64 x 64 blocks where they divide (smaller listed ones where not),
-    BLOCK_K halved until one block's shared memory fits the H100."""
+    """64 x 64 blocks where they divide (smaller listed ones where not;
+    failing those, the largest divisor below 64: the build takes every
+    block that divides its length), BLOCK_K stepped down through the
+    divisors of Sk until one block's shared memory fits the H100."""
     def pick(d, cands):
         for c in cands:
             if d % c == 0:
                 return c
-        # no candidate divides d: return d itself — likely out of the
-        # declared value list, which the registry's feasibility projection
-        # (project_feasible) repairs to the nearest in-space point
-        return d
+        return _divisors_down(d, cands[0])[0]
     cfg = {"BLOCK_Q": pick(Sq, (64, 32, 16)),
            "BLOCK_K": pick(Sk, (64, 32, 16)),
            "PIPELINE_DEPTH": 2}
-    while (cfg["BLOCK_K"] > BLOCK_K[0]
-           and not H100_SXM.fits_smem(smem_footprint(cfg, D))):
-        cfg["BLOCK_K"] //= 2
+    smaller = _divisors_down(Sk, cfg["BLOCK_K"])[1:]
+    while smaller and not H100_SXM.fits_smem(smem_footprint(cfg, D)):
+        cfg["BLOCK_K"] = smaller.pop(0)
     return cfg
 
 
 def kernel_takes(bq: int, bk: int, D: int, elt_bytes: int = 4) -> bool:
-    """Whether the blocks tile into the thread geometry of the build for
-    ``elt_bytes``-wide inputs at D."""
+    """Whether the blocks tile the thread geometry of the build for
+    ``elt_bytes``-wide inputs at D exactly (whole warps, no rows or keys
+    masked; D may be padded) within its thread limit: what a search
+    sweeps.  The build also takes blocks it must round up."""
     try:
         validate_config({"BLOCK_Q": bq, "BLOCK_K": bk}, bq, bk, D, elt_bytes)
     except ValueError:
         return False
-    return True
+    return tile({"BLOCK_Q": bq, "BLOCK_K": bk}, D, elt_bytes)[:2] == (bq, bk)
 
 
 def tuning_space(D: int = 128, elt_bytes: int = 4):

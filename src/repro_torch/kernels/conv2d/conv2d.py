@@ -51,7 +51,9 @@ the tensor cores: for each filter row, 16 output columns of 8 output rows
 are one ``mma.sync`` product of a band of the filter row (16 x 16*KS) and
 the staged bfloat16 image (:func:`band_offset`, :func:`k_steps`,
 :func:`staging_origin`, :func:`warp_tile`; :func:`conv2d_banded` is that
-schedule in PyTorch).  Every product is exact in float32 and summed in
+schedule in PyTorch).  A block sums :func:`column_blocks` of 16 columns,
+so a BLOCK_W that is no multiple of 16 builds too: its last columns are
+summed and not stored.  Every product is exact in float32 and summed in
 float32, and each output is rounded once to bfloat16, as in
 :func:`conv2d_plain`; only the order of the float32 sum differs.  Its
 threads, shared bytes and registers are its own (``elt_bytes=2`` in the
@@ -139,8 +141,9 @@ REG_OVERHEAD_BF16 = 32
 
 def band_offset(Fw: int) -> int:
     """Columns from the staging origin to a column block's first tap,
-    (-(Fw // 2)) mod 8: the origin is the 16-byte-aligned column at or
-    below c0 - Fw // 2, and c0 is a multiple of 16 (``OFF``)."""
+    (-(Fw // 2)) mod 8: the origin is the column at or below c0 - Fw // 2
+    that lies as c0 does against 8 columns, 16-byte-aligned when c0 is a
+    multiple of 8 (``OFF``)."""
     return -(Fw // 2) % 8
 
 
@@ -155,15 +158,21 @@ def staging_origin(c0: int, Fw: int) -> int:
     return c0 - Fw // 2 - band_offset(Fw)
 
 
+def column_blocks(config: Config) -> int:
+    """Column blocks of 16 a bfloat16 block sums: ceil(BLOCK_W / 16) (the
+    columns past BLOCK_W are summed and not stored)."""
+    return -(-config["BLOCK_W"] // 16)
+
+
 def warp_tile(config: Config, Fh: int, Fw: int) -> Tuple[int, int, int]:
     """(row groups of 8, column blocks of 16, k-steps) of one warp's tile
     in the bfloat16 build: RG = min(SUB_H, :data:`MAX_ROW_GROUPS`,
-    ceil(BLOCK_H / 8)), NB the widest divisor of BLOCK_W / 16 with RG * NB
-    <= :data:`MAX_WARP_TILES`, and :func:`k_steps`.  The filter height
-    does not enter."""
+    ceil(BLOCK_H / 8)), NB the widest divisor of :func:`column_blocks`
+    with RG * NB <= :data:`MAX_WARP_TILES`, and :func:`k_steps`.  The
+    filter height does not enter."""
     cfg = _merged(config)
     rg = min(cfg["SUB_H"], MAX_ROW_GROUPS, -(-cfg["BLOCK_H"] // 8))
-    cb = max(1, cfg["BLOCK_W"] // 16)
+    cb = column_blocks(cfg)
     nb = next(n for n in range(MAX_WARP_TILES // rg, 0, -1) if cb % n == 0)
     return rg, nb, k_steps(Fw)
 
@@ -178,7 +187,7 @@ def _warps(config: Config) -> int:
     """Warps of a bfloat16 block: down the rows times across the column
     blocks (BLOCK_W / 16 over NB)."""
     nb = warp_tile(config, 1, 1)[1]
-    return _warps_y(config) * (max(1, config["BLOCK_W"] // 16) // nb)
+    return _warps_y(config) * (column_blocks(config) // nb)
 
 
 def summed_rows(config: Config) -> int:
@@ -274,17 +283,17 @@ def smem_footprint(config: Config, Fh: int, Fw: int,
     quads; a filter row is rounded up to a quad.
 
     bfloat16: the halo tile of :func:`summed_rows` + Fh - 1 rows, each of
-    16 * (BLOCK_W / 16 + KS - 1) columns in 16-byte chunks plus one chunk
-    and 2 * PAD_W more (an odd count); the band, Fh x 16 rows of 16 * KS +
-    8 columns; the zero-padded filter rows, Fh x (16 * KS + 16).  The
-    output is staged in the tile's place.
+    16 * (:func:`column_blocks` + KS - 1) columns in 16-byte chunks plus
+    one chunk and 2 * PAD_W more (an odd count); the band, Fh x 16 rows of
+    16 * KS + 8 columns; the zero-padded filter rows, Fh x (16 * KS + 16).
+    The output is staged in the tile's place.
     """
     cfg = _merged(config)
     if cfg["HALO_MODE"] == "xla":
         return 0
     if elt_bytes == 2:
         ks = k_steps(Fw)
-        chunks = 2 * (max(1, cfg["BLOCK_W"] // 16) + ks - 1)
+        chunks = 2 * (column_blocks(cfg) + ks - 1)
         stride = 8 * (chunks + 1 + 2 * int(cfg.get("PAD_W", 0)))
         tile = (summed_rows(cfg) + Fh - 1) * stride
         return 2 * (tile + Fh * 16 * (16 * ks + 8) + Fh * (16 * ks + 16))
@@ -305,9 +314,6 @@ def validate_config(config: Config, H: int, W: int, Fh: int, Fw: int,
         raise ValueError(f"bad HALO_MODE {config['HALO_MODE']!r}")
     if config["HALO_MODE"] == "xla":
         return
-    if elt_bytes == 2 and bw % 16:
-        raise ValueError(f"the bfloat16 build tiles BLOCK_W in columns of "
-                         f"16 (mma tiles), not {bw}")
     threads = block_threads(config, elt_bytes)
     if threads > 1024:
         raise ValueError(f"({bh},{bw}) blocks with SUB_H={config['SUB_H']} "
@@ -377,7 +383,7 @@ def conv2d_banded(image: torch.Tensor, filt: torch.Tensor,
     H, W = image.shape
     Fh, Fw = filt.shape
     bh, bw = cfg["BLOCK_H"], cfg["BLOCK_W"]
-    rows, cb, kw = summed_rows(cfg), bw // 16, 16 * k_steps(Fw)
+    rows, cb, kw = summed_rows(cfg), column_blocks(cfg), 16 * k_steps(Fw)
     span = 16 * (cb + k_steps(Fw) - 1)
     img = image.to(torch.float32)
     bands = band(filt)

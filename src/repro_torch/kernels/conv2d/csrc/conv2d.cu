@@ -46,10 +46,13 @@
 //   column, n the output row) is the staged image rows r + i - FH/2 over
 //   K = 16*KS input columns starting at the staging origin plus 16t, and
 //   T_i (16 x K) is the band T_i[m, k] = f[i, k - m - OFF] inside
-//   0 <= k - m - OFF < FW, 0 elsewhere.  The staging origin is the
-//   16-byte-aligned column at or below c0 - FW/2 (BLOCK_W is a multiple of
-//   16), so OFF = (-(FW/2)) mod 8 is one constant of the build and every
-//   ldmatrix row address stays 16-byte aligned; the band absorbs it.
+//   0 <= k - m - OFF < FW, 0 elsewhere.  The staging origin is the column
+//   at or below c0 - FW/2 that lies as c0 does against 8 columns (16-byte
+//   aligned when BLOCK_W is a multiple of 8), so OFF = (-(FW/2)) mod 8 is
+//   one constant of the build and every ldmatrix row address stays 16-byte
+//   aligned in shared memory; the band absorbs it.  A block sums CB =
+//   ceil(BLOCK_W / 16) column blocks; columns past BLOCK_W are summed and
+//   not stored.
 //   KS = ceil((OFF + FW + 15) / 16) k-steps: 2 for every odd filter up to
 //   17 wide, so any filter the float32 build takes still builds.
 // * Orientation: M = 16 output columns, A = the band, N = 8 output rows,
@@ -67,7 +70,7 @@
 //   ~340 TFLOP/s of effective peak against the FMA units' 67.
 // * Warps own tiles (conv2d.py::warp_tile): RG = min(SUB_H, 4,
 //   ceil(BLOCK_H / 8)) row groups of 8 rows by NB column blocks of 16, NB
-//   the widest divisor of BLOCK_W / 16 with RG * NB <= 8 (32 float32 sums
+//   the widest divisor of CB with RG * NB <= 8 (32 float32 sums
 //   a lane).  Eight row groups of one column block (SUB_H 8) spilled at
 //   512 threads: ptxas kept the next filter row's image fragments of
 //   every group live beside the sums, so a warp takes at most four.
@@ -75,17 +78,18 @@
 //   and not stored.  A warp loads its filter row's KS band fragments once
 //   (ldmatrix.x4) for its RG * NB tiles, and two image fragments a
 //   ldmatrix.x4.
-// * Staging: the halo tile, ROWS + FH - 1 rows of 16 * (BLOCK_W / 16 +
+// * Staging: the halo tile, ROWS + FH - 1 rows of 16 * (CB +
 //   KS - 1) columns, is staged as bfloat16 by 16-byte cp.async (src-size 0
 //   writes the zeros outside the image); every column the products read is
 //   staged, since a zero of the band times garbage could be NaN (and a
-//   non-finite input reaches outputs up to K columns away).  Where W is no
-//   multiple of 8, or an operand is not 16-byte aligned, an element path
-//   in the kernel stages and stores instead.  Rows are padded to an odd
-//   number of 16-byte chunks, so the 8 rows one ldmatrix reads fall on 8
-//   bank groups.  The band is built once a block in shared memory while
-//   the tile is in flight: the filter rows zero padded first, then 16-byte
-//   chunks of the band from them (FH * 16 * K bfloat16, 11 KB at 11x11).
+//   non-finite input reaches outputs up to K columns away).  Where W or
+//   BLOCK_W is no multiple of 8, or an operand is not 16-byte aligned, an
+//   element path in the kernel stages and stores instead.  Rows are padded
+//   to an odd number of 16-byte chunks, so the 8 rows one ldmatrix reads
+//   fall on 8 bank groups.  The band is built once a block in shared
+//   memory while the tile is in flight: the filter rows zero padded first,
+//   then 16-byte chunks of the band from them (FH * 16 * K bfloat16, 11 KB
+//   at 11x11).
 // * What bounds it: at 3x3 and 7x7 bytes; at 11x11 the mma issue (22
 //   products for 128 outputs over the 11 filter rows, each fed by ~1.6
 //   shared-memory wavefronts at NB = 8).  Blocks stage and compute in
@@ -185,7 +189,7 @@ constexpr int RG_WANT = SUB_H < MAX_RG ? SUB_H : MAX_RG;
 constexpr int RG = RG_WANT < ROWS8 ? RG_WANT : ROWS8;    // ... of one warp
 constexpr int WARPS_Y = (ROWS8 + RG - 1) / RG;
 constexpr int ROWS = 8 * RG * WARPS_Y;           // rows summed (>= BLOCK_H)
-constexpr int CB = BLOCK_W / 16;                 // column blocks of 16
+constexpr int CB = (BLOCK_W + 15) / 16;          // column blocks of 16
 constexpr int MAX_TILES = 8;                     // m16n8 tiles a warp holds
 constexpr int pick_nb() {
     for (int nb = MAX_TILES / RG; nb > 1; --nb)
@@ -202,7 +206,7 @@ constexpr int CHUNKS = SPAN / 8;                 // 16-byte chunks of a row
 constexpr int STRIDE = 8 * (CHUNKS + 1 + 2 * PAD_W);  // an odd chunk count
 constexpr int BSTRIDE = KW + 8;                  // band rows: odd chunks too
 constexpr int ZW = KW + 16;                      // a zero-padded filter row
-constexpr int OSTRIDE = BLOCK_W + 8;             // the output stage's rows
+constexpr int OSTRIDE = 16 * CB + 8;             // the output stage's rows
 constexpr int TILE_ELEMS = TILE_H * STRIDE;
 constexpr int BAND_ELEMS = FH * 16 * BSTRIDE;
 
@@ -211,7 +215,6 @@ constexpr int SMEM_BYTES = 2 * (TILE_ELEMS + BAND_ELEMS + FH * ZW);
 constexpr int TILE0 = RG, TILE1 = NB, TILE2 = KS;
 
 static_assert(BLOCK_H % SUB_H == 0, "BLOCK_H divisible by SUB_H");
-static_assert(BLOCK_W % 16 == 0, "BLOCK_W a multiple of 16 (mma tiles)");
 static_assert(NTHREADS <= 1024, "at most 1024 threads per block");
 static_assert(ROWS * OSTRIDE <= TILE_ELEMS, "the output stage fits the tile");
 
@@ -311,11 +314,14 @@ conv2d_kernel(const elem_t* __restrict__ img, const elem_t* __restrict__ filt,
 
     const int r0 = blockIdx.y * BLOCK_H, c0 = blockIdx.x * BLOCK_W;
     const int tid = threadIdx.x;
-    // 16-byte copies need whole chunks in a row and aligned operands
-    const bool vec = W % 8 == 0 && (reinterpret_cast<size_t>(img) & 15) == 0
+    // 16-byte copies need whole chunks in a row, blocks that start on a
+    // chunk, and aligned operands
+    const bool vec = BLOCK_W % 8 == 0 && W % 8 == 0
+                     && (reinterpret_cast<size_t>(img) & 15) == 0
                      && (reinterpret_cast<size_t>(out) & 15) == 0;
 
-    // the staging origin: the 16-byte-aligned column at or below c0 - FW/2
+    // the staging origin: the column at or below c0 - FW/2 that lies as c0
+    // does against 8 columns
     stage_tile(tile, img, H, W, r0, c0 - FW / 2 - OFF, tid, vec);
     build_band(band, z, filt, tid);              // while the tile lands
     asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -383,7 +389,7 @@ conv2d_kernel(const elem_t* __restrict__ img, const elem_t* __restrict__ filt,
                 ost[(y0 + 8 * g + c2 + (e & 1)) * OSTRIDE + 16 * (t0 + t) + gq
                     + 8 * (e >> 1)] = __float2bfloat16_rn(weight * acc[g][t][e]);
     __syncthreads();
-    constexpr int OQ = BLOCK_W / 8;              // 16-byte chunks of a row
+    constexpr int OQ = (BLOCK_W + 7) / 8;        // 16-byte chunks of a row
     for (int idx = tid; idx < BLOCK_H * OQ; idx += NTHREADS) {
         const int y = idx / OQ, q = idx % OQ;
         const int gr = r0 + y, gc = c0 + 8 * q;
@@ -394,7 +400,9 @@ conv2d_kernel(const elem_t* __restrict__ img, const elem_t* __restrict__ filt,
             *reinterpret_cast<uint4*>(dst) =
                 *reinterpret_cast<const uint4*>(src);
         } else {
-            for (int e = 0; e < 8 && gc + e < W; ++e) dst[e] = src[e];
+            for (int e = 0; e < 8 && gc + e < W
+                            && (BLOCK_W % 8 == 0 || 8 * q + e < BLOCK_W); ++e)
+                dst[e] = src[e];
         }
     }
 }

@@ -97,10 +97,6 @@ def tuning_space(extended: bool = False, elt_bytes: int = 4):
          ("BLOCK_H", "BLOCK_W", "SUB_H", "HALO_MODE"),
          "at most 1024 threads per block"),
     ]
-    if elt_bytes == 2:
-        constraints.append(
-            (lambda bw, mode: mode == "xla" or bw % 16 == 0,
-             ("BLOCK_W", "HALO_MODE"), "BLOCK_W in columns of 16 (mma)"))
     return params, constraints
 
 

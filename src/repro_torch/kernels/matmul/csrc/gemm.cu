@@ -23,6 +23,26 @@
 //   IN_BF16        A, B and C are bfloat16 (else float32); products and
 //                  sums are float32
 //   PIPELINE_DEPTH shared-memory stages of A and B slices (default 2)
+//   RAGGED         1: the block is not what the threads tile, or its slices
+//                  are not whole 16-byte chunks (matmul.py::ragged); the
+//                  build then names its tile:
+//   TILE_M, TILE_N, TILE_K  the tile the threads cover (matmul.py::tile):
+//                  the block rounded up to the micro-tile (float32) or to
+//                  the mma tiles (bfloat16)
+//   K_SEG, K_SUB   a K slice's tile columns come in segments of K_SEG, each
+//                  holding K_SUB of the block's depth (matmul.py::k_segments:
+//                  in bfloat16 a sub-dot that ends off an 8-deep mma step
+//                  gets a zero-padded segment of its own)
+//
+// Ragged blocks (RAGGED): the grid keeps one block per config block (BLOCK_M
+// rows, BLOCK_N columns, K steps of BLOCK_K); the threads cover the tile.
+// Every element of a stage is copied on its own, zero outside the block:
+// 4-byte cp.async with src-size 0 for the zeros in float32, plain loads and
+// stores in bfloat16 (2-byte elements).  The tile past the block would hold
+// the next block's rows, columns or depth, so it is never read from memory:
+// zeros there add nothing to a sum, and their outputs are not stored (one
+// element a store, inside the block).  Such builds are correct at any block
+// (a prime dim takes blocks of 1) and slow; every other build is unchanged.
 //
 // Both builds stage their operands the same way: a ring of PIPELINE_DEPTH
 // stages of A and B slices, filled with cp.async 16-byte copies.  The
@@ -94,11 +114,36 @@
 #define PIPELINE_DEPTH 2
 #endif
 
-constexpr int BM = BLOCK_M, BN = BLOCK_N, BK = BLOCK_K;
+#ifndef RAGGED
+#define RAGGED 0
+#endif
+#ifndef TILE_M
+#define TILE_M BLOCK_M
+#endif
+#ifndef TILE_N
+#define TILE_N BLOCK_N
+#endif
+#ifndef TILE_K
+#define TILE_K BLOCK_K
+#endif
+#ifndef K_SEG
+#define K_SEG TILE_K
+#endif
+#ifndef K_SUB
+#define K_SUB BLOCK_K
+#endif
+
+// the block: the grid's step and the K loop's
+constexpr int XM = BLOCK_M, XN = BLOCK_N, XK = BLOCK_K;
+// the tile the threads cover (the block, unless RAGGED)
+constexpr int BM = TILE_M, BN = TILE_N, BK = TILE_K;
 constexpr int STAGES = PIPELINE_DEPTH;
 constexpr int A_TILE = BM * BK, B_TILE = BK * BN;
 
-static_assert(BK % INNER_STEPS == 0, "BLOCK_K divisible by INNER_STEPS");
+static_assert(XK % INNER_STEPS == 0, "BLOCK_K divisible by INNER_STEPS");
+static_assert(BM >= XM && BN >= XN && BK >= XK, "the tile covers the block");
+static_assert(RAGGED || (BM == XM && BN == XN && BK == XK),
+              "only a ragged build has a tile larger than its block");
 static_assert(STAGES >= 2, "at least two stages");
 
 __device__ __forceinline__ float round_bf16(float x) {
@@ -119,6 +164,15 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
     asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
+
+#if RAGGED
+// the block's depth of tile K column (or row) j of a slice, or -1 past its
+// segment's depth
+__device__ __forceinline__ int k_of(int j) {
+    const int w = j % K_SEG;
+    return w < K_SUB ? (j / K_SEG) * K_SUB + w : -1;
+}
+#endif
 
 #if IN_BF16
 // ---------------------------------------------------------------------------
@@ -156,14 +210,20 @@ static_assert(NTHREADS <= 1024, "at most 1024 threads per block");
 // one ldmatrix reads at one logical chunk land on 8 distinct 16-byte bank
 // groups: with 8 or more chunks a row, the row's low 3 bits; with fewer,
 // the bits of the row above those that pick its place in a 128-byte line.
+//
+// The XOR stays inside the row where the chunks of a row are a multiple of
+// 8 or a power of two; other rows (48 or 112 elements, say) are stored as
+// they are.
 template <int ROW>
 __device__ __forceinline__ int swz(int r, int c) {
     constexpr int CPR = ROW / 8;
     int x;
-    if constexpr (CPR >= 8)
+    if constexpr (CPR % 8 == 0)
         x = r & 7;
-    else
+    else if constexpr ((CPR & (CPR - 1)) == 0)
         x = (r / (8 / CPR)) & (CPR - 1);
+    else
+        x = 0;
     return r * ROW + ((c ^ x) << 3);
 }
 
@@ -178,6 +238,38 @@ __device__ __forceinline__ void each_copy(int tid, F copy) {
     }
 }
 
+#if RAGGED
+// one K step's slices of A and B into one stage, element by element: the
+// block's elements, zeros in the rest of the tile (the loops stay rolled,
+// four loads in flight, so the loaded values do not crowd the fragments)
+__device__ __forceinline__ void load_stage(
+        elem_t* As, elem_t* Bs, const elem_t* __restrict__ A,
+        const elem_t* __restrict__ B, int m0, int n0, int k0, int M, int N,
+        int K, int tid) {
+    const elem_t zero = __float2bfloat16_rn(0.f);
+#if TRANS_A
+#pragma unroll 4
+    for (int i = tid; i < BK * BM; i += NTHREADS) {  // A (K, M): BK rows of BM
+        const int r = i / BM, c = i % BM, k = k_of(r);
+        As[swz<BM>(r, c >> 3) + (c & 7)] =
+            k >= 0 && c < XM ? A[(size_t)(k0 + k) * M + m0 + c] : zero;
+    }
+#else
+#pragma unroll 4
+    for (int i = tid; i < BM * BK; i += NTHREADS) {  // A (M, K): BM rows of BK
+        const int r = i / BK, c = i % BK, k = k_of(c);
+        As[swz<BK>(r, c >> 3) + (c & 7)] =
+            k >= 0 && r < XM ? A[(size_t)(m0 + r) * K + k0 + k] : zero;
+    }
+#endif
+#pragma unroll 4
+    for (int i = tid; i < BK * BN; i += NTHREADS) {  // B (K, N): BK rows of BN
+        const int r = i / BN, c = i % BN, k = k_of(r);
+        Bs[swz<BN>(r, c >> 3) + (c & 7)] =
+            k >= 0 && c < XN ? B[(size_t)(k0 + k) * N + n0 + c] : zero;
+    }
+}
+#else
 // cp.async of one K step's slices of A and B into one stage
 __device__ __forceinline__ void load_stage(
         elem_t* As, elem_t* Bs, const elem_t* __restrict__ A,
@@ -202,6 +294,7 @@ __device__ __forceinline__ void load_stage(
         cp_async16(Bs + swz<BN>(r, c), B + (size_t)(k0 + r) * N + n0 + c * 8);
     });
 }
+#endif  // RAGGED
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
     return (unsigned)__cvta_generic_to_shared(p);
@@ -361,20 +454,20 @@ gemm_kernel(const elem_t* __restrict__ A, const elem_t* __restrict__ B,
     elem_t* Bs = As + STAGES * A_TILE;                  // [STAGES][BK][BN]
 
 #if GRID_NM
-    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+    const int m0 = blockIdx.x * XM, n0 = blockIdx.y * XN;
 #else
-    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+    const int n0 = blockIdx.x * XN, m0 = blockIdx.y * XM;
 #endif
     const int tid = threadIdx.x;
     const int lane = tid & 31, warp = tid >> 5;
     const int wm0 = (warp / WARPS_N) * WM, wn0 = (warp % WARPS_N) * WN;
-    const int nk = K / BK;
+    const int nk = K / XK;
 
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < nk)
             load_stage(As + s * A_TILE, Bs + s * B_TILE, A, B, m0, n0,
-                       s * BK, M, N, K, tid);
+                       s * XK, M, N, K, tid);
         cp_async_commit();
     }
 
@@ -389,7 +482,7 @@ gemm_kernel(const elem_t* __restrict__ A, const elem_t* __restrict__ B,
             if (nt < nk)
                 load_stage(As + (nt % STAGES) * A_TILE,
                            Bs + (nt % STAGES) * B_TILE, A, B, m0, n0,
-                           nt * BK, M, N, K, tid);
+                           nt * XK, M, N, K, tid);
             cp_async_commit();
         }
         const elem_t* At = As + (t % STAGES) * A_TILE;
@@ -443,18 +536,28 @@ gemm_kernel(const elem_t* __restrict__ A, const elem_t* __restrict__ B,
     }
 
     // the fragments' rows lane / 4 and lane / 4 + 8, columns 2 (lane % 4)
-    // and the next: one bfloat16 pair a store
+    // and the next: one bfloat16 pair a store (RAGGED: one element a
+    // store, inside the block)
 #pragma unroll
     for (int i = 0; i < MT; ++i) {
         const int row = m0 + wm0 + i * 16 + (lane >> 2);
 #pragma unroll
         for (int j = 0; j < NT; ++j) {
             const int col = n0 + wn0 + j * 8 + 2 * (lane & 3);
+#if RAGGED
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int r = row + 8 * (e >> 1), c = col + (e & 1);
+                if (r - m0 < XM && c - n0 < XN)
+                    C[(size_t)r * N + c] = __float2bfloat16_rn(acc[i][j][e]);
+            }
+#else
             *reinterpret_cast<__nv_bfloat162*>(C + (size_t)row * N + col) =
                 __floats2bfloat162_rn(acc[i][j][0], acc[i][j][1]);
             *reinterpret_cast<__nv_bfloat162*>(C + (size_t)(row + 8) * N
                                                + col) =
                 __floats2bfloat162_rn(acc[i][j][2], acc[i][j][3]);
+#endif
         }
     }
 }
@@ -471,8 +574,8 @@ typedef float elem_t;
 // g of a thread's rows starts at g * (BLOCK_M / (TM/4)) + 4 * ty, so the
 // 16-byte shared-memory reads of neighbouring threads fall on neighbouring
 // addresses.
-constexpr int TM = BM >= 64 ? 8 : 4;
-constexpr int TN = BN >= 64 ? 8 : 4;
+constexpr int TM = XM >= 64 ? 8 : 4;
+constexpr int TN = XN >= 64 ? 8 : 4;
 constexpr int THREADS_M = BM / TM;
 constexpr int THREADS_N = BN / TN;
 constexpr int NTHREADS = THREADS_M * THREADS_N;
@@ -488,7 +591,7 @@ constexpr int SMEM_BYTES = STAGES * (A_TILE + B_TILE) * 4;
 static_assert(BM % TM == 0 && BN % TN == 0,
               "BLOCK_M/BLOCK_N must be multiples of the micro-tile");
 static_assert(NTHREADS <= 1024, "at most 1024 threads per block");
-static_assert(BN % VEC == 0 && (TRANS_A ? BM : BK) % VEC == 0,
+static_assert(RAGGED || (BN % VEC == 0 && (TRANS_A ? BM : BK) % VEC == 0),
               "tile rows are whole 16-byte copies");
 
 // W consecutive floats of shared memory: one 4-, 8- or 16-byte load
@@ -505,6 +608,42 @@ __device__ __forceinline__ void load_n(const float* p, float* out) {
     }
 }
 
+#if RAGGED
+// 4 bytes, or zeros (src-size 0, nothing read) where `in` is false
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool in) {
+    const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(s), "l"(src), "r"(in ? 4 : 0));
+}
+
+// cp.async of one K step's slices of A and B into one stage, element by
+// element: the block's elements, zeros in the rest of the tile (the float32
+// tile's depth is the block's)
+__device__ __forceinline__ void load_stage(
+        float* As, float* Bs, const float* __restrict__ A,
+        const float* __restrict__ B, int m0, int n0, int k0, int M, int N,
+        int K, int tid) {
+#if TRANS_A
+    for (int i = tid; i < BK * BM; i += NTHREADS) {  // A (K, M): BK rows of BM
+        const int r = i / BM, c = i % BM;
+        const bool in = c < XM;
+        cp_async4(As + i, in ? A + (size_t)(k0 + r) * M + m0 + c : A, in);
+    }
+#else
+    for (int i = tid; i < BM * BK; i += NTHREADS) {  // A (M, K): BM rows of BK
+        const int r = i / BK, c = i % BK;
+        const bool in = r < XM;
+        cp_async4(As + i, in ? A + (size_t)(m0 + r) * K + k0 + c : A, in);
+    }
+#endif
+    for (int i = tid; i < BK * BN; i += NTHREADS) {  // B (K, N): BK rows of BN
+        const int r = i / BN, c = i % BN;
+        const bool in = c < XN;
+        cp_async4(Bs + i, in ? B + (size_t)(k0 + r) * N + n0 + c : B, in);
+    }
+}
+#else
 // cp.async of one K step's slices of A and B into one stage
 __device__ __forceinline__ void load_stage(
         float* As, float* Bs, const float* __restrict__ A,
@@ -532,10 +671,12 @@ __device__ __forceinline__ void load_stage(
                    B + (size_t)(k0 + r) * N + n0 + c * VEC);
     }
 }
+#endif  // RAGGED
 
 // two blocks of up to 256 threads on an SM: at most 128 registers each
-// (a bfloat16 accumulator keeps a second tile and is left one block)
-constexpr int MIN_BLOCKS = (NTHREADS <= 256 && !ACC_BF16) ? 2 : 1;
+// (a bfloat16 accumulator keeps a second tile, and a ragged build the
+// element copies' addresses: they are left one block)
+constexpr int MIN_BLOCKS = (NTHREADS <= 256 && !ACC_BF16 && !RAGGED) ? 2 : 1;
 
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
 gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
@@ -545,19 +686,19 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
     float* Bs = As + STAGES * A_TILE;                  // [STAGES][BK][BN]
 
 #if GRID_NM
-    const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+    const int m0 = blockIdx.x * XM, n0 = blockIdx.y * XN;
 #else
-    const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+    const int n0 = blockIdx.x * XN, m0 = blockIdx.y * XM;
 #endif
     const int tid = threadIdx.x;
     const int tx = tid % THREADS_N, ty = tid / THREADS_N;
-    const int nk = K / BK;
+    const int nk = K / XK;
 
 #pragma unroll
     for (int s = 0; s < STAGES - 1; ++s) {
         if (s < nk)
             load_stage(As + s * A_TILE, Bs + s * B_TILE, A, B, m0, n0,
-                       s * BK, M, N, K, tid);
+                       s * XK, M, N, K, tid);
         cp_async_commit();
     }
 
@@ -578,7 +719,7 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
             if (nt < nk)
                 load_stage(As + (nt % STAGES) * A_TILE,
                            Bs + (nt % STAGES) * B_TILE, A, B, m0, n0,
-                           nt * BK, M, N, K, tid);
+                           nt * XK, M, N, K, tid);
             cp_async_commit();
         }
         const float* At = As + (t % STAGES) * A_TILE;
@@ -651,6 +792,9 @@ gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
             const int col = n0 + (j / 4) * GROUP_N + 4 * tx + (j % 4);
+#if RAGGED
+            if (row - m0 < XM && col - n0 < XN)
+#endif
             C[(size_t)row * N + col] = acc[i][j];
         }
     }
@@ -661,8 +805,10 @@ extern "C" {
 
 // Launch on `stream` (a cudaStream_t) of CUDA device `device`; does not
 // synchronise.  Returns a cudaError_t: 0 when the launch was accepted.
-// The caller guarantees BLOCK_M | M, BLOCK_N | N, BLOCK_K | K and
-// contiguous, 16-byte aligned row-major operands on `device`.
+// The caller guarantees BLOCK_M | M, BLOCK_N | N, BLOCK_K | K (any block
+// that divides its dim: matmul.py::ragged picks the build that masks its
+// tile) and contiguous row-major operands on `device`, each starting on a
+// 16-byte boundary; a ragged build reads rows at any alignment.
 int gemm_launch(const void* a, const void* b, void* c, int M, int N, int K,
                 int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
@@ -672,9 +818,9 @@ int gemm_launch(const void* a, const void* b, void* c, int M, int N, int K,
                                SMEM_BYTES);
     if (err != cudaSuccess) return (int)err;
 #if GRID_NM
-    const dim3 grid(M / BM, N / BN);
+    const dim3 grid(M / XM, N / XN);
 #else
-    const dim3 grid(N / BN, M / BM);
+    const dim3 grid(N / XN, M / XM);
 #endif
     gemm_kernel<<<grid, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
         (const elem_t*)a, (const elem_t*)b, (elem_t*)c, M, N, K);

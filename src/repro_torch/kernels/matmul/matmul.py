@@ -30,12 +30,16 @@ Parameter vocabulary (paper Table IV, re-derived for Hopper):
   TRANS_A     True|False        A arrives (K, M): C = A^T B (the paper's form)
 
 The thread geometry follows from the block shape inside the build
-(:func:`block_threads`).  In float32 each thread owns a TM x TN
-micro-tile, TM = 8 when BLOCK_M >= 64 else 4 (TN likewise), so a block
-has (BLOCK_M/TM) * (BLOCK_N/TN) threads.  In bfloat16 each warp owns a
-WM x WN warp tile, the largest of 64, 32 and 16 that divides half the
-block side, else 16 (WN at most 32 under a bfloat16 accumulator), so a
-block has 32 * (BLOCK_M/WM) * (BLOCK_N/WN) threads.
+(:func:`block_threads`).  The threads cover a :func:`tile`: the block,
+rounded up where the geometry does not tile it (BLOCK_M 100 in float32
+is a tile of 104 rows, in bfloat16 of 128; its extra rows are zeros on
+load and are not stored), so every block that divides the problem
+builds.  In float32 each thread owns a TM x TN micro-tile, TM = 8 when
+BLOCK_M >= 64 else 4 (TN likewise), so a block has (TILE_M/TM) *
+(TILE_N/TN) threads.  In bfloat16 each warp owns a WM x WN warp tile,
+the largest of 64, 32 and 16 that divides half the tile's side, else 16
+(WN at most 32 under a bfloat16 accumulator), so a block has 32 *
+(TILE_M/WM) * (TILE_N/WN) threads.
 
 PIPELINE_DEPTH (the extended space's; 2 where a config does not name it,
 the JAX default) is the number of shared-memory stages.  The extended
@@ -91,27 +95,86 @@ def _merged(config: Optional[Config]) -> Config:
     return cfg
 
 
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def _side_bf16(b: int) -> int:
+    """A block side as the bfloat16 build's warps tile it: the side itself
+    when a multiple of 16 (the mma's m16 and two n8 tiles), else the
+    smallest of 16, 32 and the multiples of 64 above it, which keeps the
+    warp tiles of :func:`warp_tile` wide."""
+    if b % 16 == 0:
+        return b
+    return 16 if b <= 16 else 32 if b <= 32 else _round_up(b, 64)
+
+
+def k_segments(config: Config, elt_bytes: int = 4) -> Tuple[int, int, int]:
+    """(segments, tile columns of a segment, depth of a segment) of one K
+    slice in the build's tile.  The float32 build stages the BLOCK_K slice
+    as it is: one segment.  The bfloat16 build multiplies 8 or 16 deep, and
+    a sum rounded to bfloat16 (ACC_DTYPE) must end where a sub-dot of
+    BLOCK_K / INNER_STEPS ends; where the sub-dot (the whole slice under a
+    float32 accumulator) is neither a multiple of 8 nor 1, 2 or 4 of an
+    8-deep slice, each sub-dot gets a segment of its own, padded to 8 (up
+    to 8 deep) or to a multiple of 16, with zeros past its depth."""
+    bk = config["BLOCK_K"]
+    if elt_bytes == 4:
+        return 1, bk, bk
+    acc_bf16 = config.get("ACC_DTYPE", "float32") == "bfloat16"
+    sub = bk // config.get("INNER_STEPS", 1) if acc_bf16 else bk
+    if sub % 8 == 0 or (sub in (1, 2, 4) and bk % 8 == 0):
+        return 1, bk, bk
+    return bk // sub, (8 if sub <= 8 else _round_up(sub, 16)), sub
+
+
+def tile(config: Config, elt_bytes: int = 4) -> Tuple[int, int, int]:
+    """(TILE_M, TILE_N, TILE_K): the block as the build's threads cover it.
+
+    Each side is rounded up to what the thread geometry needs: in float32
+    to the micro-tile (TM = 8 when BLOCK_M >= 64 else 4, TN likewise), in
+    bfloat16 to the mma tiles (:func:`_side_bf16`, :func:`k_segments`).
+    The grid keeps one block per config block; the rows, columns and depth
+    of the tile past the block are zero-filled on load and never stored.
+    At every config whose block the threads tile exactly, the tile is the
+    block."""
+    bm, bn = config["BLOCK_M"], config["BLOCK_N"]
+    segments, seg, _ = k_segments(config, elt_bytes)
+    if elt_bytes == 4:
+        tm, tn, _ = micro_tile(config)
+        return _round_up(bm, tm), _round_up(bn, tn), segments * seg
+    return _side_bf16(bm), _side_bf16(bn), segments * seg
+
+
+def ragged(config: Config, elt_bytes: int = 4) -> bool:
+    """Whether the build masks its tile (``RAGGED`` in the source) and
+    copies element by element: the tile exceeds the block, or a block
+    side is no multiple of 8, which the unmasked build, copying its slices
+    in 16-byte chunks, does not take."""
+    bm, bn, bk = config["BLOCK_M"], config["BLOCK_N"], config["BLOCK_K"]
+    return (tile(config, elt_bytes) != (bm, bn, bk)
+            or bool(bm % 8 or bn % 8 or bk % 8))
+
+
 def micro_tile(config: Config) -> Tuple[int, int, int]:
-    """(TM, TN, threads per block) the build derives from the block shape."""
+    """(TM, TN, threads per block) the float32 build derives from the
+    block shape: TM = 8 when BLOCK_M >= 64 else 4 (TN likewise), one
+    thread a TM x TN micro-tile of the :func:`tile`."""
     bm, bn = config["BLOCK_M"], config["BLOCK_N"]
     tm = 8 if bm >= 64 else 4
     tn = 8 if bn >= 64 else 4
-    return tm, tn, (bm // tm) * (bn // tn)
+    return tm, tn, (_round_up(bm, tm) // tm) * (_round_up(bn, tn) // tn)
 
 
 def warp_tile(config: Config) -> Tuple[int, int, int]:
     """(WM, WN, threads per block) the bfloat16 build derives from the
     block shape: each warp owns a WM x WN tile of the output as float32
     mma fragments, WM the largest of 64, 32 and 16 that divides half of
-    BLOCK_M (else 16), WN likewise for BLOCK_N but at most 32 under a
-    bfloat16 accumulator (which keeps a second set of fragments).  Two
-    warps along each side keep a 64 x 64 block at four warps: one warp of
-    64 x 64 fragments spills there.  Raises ``ValueError`` when a block
-    side is not a multiple of 16 (the mma's m16 and two n8 tiles)."""
-    bm, bn = config["BLOCK_M"], config["BLOCK_N"]
-    if bm % 16 or bn % 16:
-        raise ValueError(f"the bfloat16 build takes blocks ({bm},{bn}) in "
-                         "multiples of 16 (mma tiles)")
+    the tile's side (:func:`_side_bf16` of BLOCK_M; else 16), WN likewise
+    for BLOCK_N but at most 32 under a bfloat16 accumulator (which keeps a
+    second set of fragments).  Two warps along each side keep a 64 x 64
+    block at four warps: one warp of 64 x 64 fragments spills there."""
+    bm, bn = _side_bf16(config["BLOCK_M"]), _side_bf16(config["BLOCK_N"])
     acc_bf16 = config.get("ACC_DTYPE", "float32") == "bfloat16"
     wm = next((w for w in (64, 32, 16) if bm % (2 * w) == 0), 16)
     wn = next((w for w in ((32, 16) if acc_bf16 else (64, 32, 16))
@@ -126,9 +189,15 @@ def block_threads(config: Config, elt_bytes: int = 4) -> int:
     return (micro_tile(config) if elt_bytes == 4 else warp_tile(config))[2]
 
 
-def validate_config(config: Config, M: int, N: int, K: int) -> None:
+def validate_config(config: Config, M: int, N: int, K: int,
+                    elt_bytes: int = 4) -> None:
+    """Raise ``ValueError`` on what the JAX package refuses (blocks that do
+    not divide the dims, INNER_STEPS that does not divide BLOCK_K, an
+    in-place bfloat16 sum) and on what the card cannot launch: more than
+    1024 threads, or fewer than two stages, in the build for
+    ``elt_bytes``-wide operands."""
     bm, bn, bk = config["BLOCK_M"], config["BLOCK_N"], config["BLOCK_K"]
-    if M % bm or N % bn or K % bk:
+    if min(bm, bn, bk) < 1 or M % bm or N % bn or K % bk:
         raise ValueError(f"dims ({M},{N},{K}) not divisible by blocks "
                          f"({bm},{bn},{bk})")
     if bk % config["INNER_STEPS"]:
@@ -139,31 +208,28 @@ def validate_config(config: Config, M: int, N: int, K: int) -> None:
         raise ValueError(f"bad GRID_ORDER {config['GRID_ORDER']!r}")
     if config["ACC_DTYPE"] not in DTYPES:
         raise ValueError(f"bad ACC_DTYPE {config['ACC_DTYPE']!r}")
-    tm, tn, threads = micro_tile(config)
-    if bm % tm or bn % tn:
-        raise ValueError(f"BLOCK_M/BLOCK_N ({bm},{bn}) must be multiples "
-                         f"of the {tm}x{tn} micro-tile")
+    threads = block_threads(config, elt_bytes)
     if threads > 1024:
         raise ValueError(f"({bm},{bn}) blocks need {threads} threads; "
                          "a block has at most 1024")
-    if bm % 8 or bn % 8 or bk % 8:
-        raise ValueError(f"blocks ({bm},{bn},{bk}) must be multiples of 8: "
-                         "the slices are copied 16 bytes at a time")
     if int(config.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH)) < 2:
         raise ValueError("PIPELINE_DEPTH must be at least 2 (a ring)")
 
 
 def smem_footprint(config: Config, elt_bytes: int = 4) -> int:
     """Bytes of shared memory one block claims: PIPELINE_DEPTH stages of a
-    BLOCK_K slice of A and of B, unpadded, in the input type."""
+    K slice of A and of B as the :func:`tile` holds them, unpadded, in the
+    input type."""
     cfg = _merged(config)
-    bm, bn, bk = cfg["BLOCK_M"], cfg["BLOCK_N"], cfg["BLOCK_K"]
+    tm, tn, tk = tile(cfg, elt_bytes)
     depth = int(cfg.get("PIPELINE_DEPTH", DEFAULT_PIPELINE_DEPTH))
-    return elt_bytes * depth * bk * (bm + bn)
+    return elt_bytes * depth * tk * (tm + tn)
 
 
 def _defines(cfg: Config, dtype: torch.dtype) -> Dict[str, int]:
-    return {
+    """The build's -D defines; a :func:`ragged` build also names its tile
+    and the K segments of :func:`k_segments`."""
+    defines = {
         "BLOCK_M": cfg["BLOCK_M"], "BLOCK_N": cfg["BLOCK_N"],
         "BLOCK_K": cfg["BLOCK_K"],
         "GRID_NM": int(cfg["GRID_ORDER"] == "nm"),
@@ -174,6 +240,12 @@ def _defines(cfg: Config, dtype: torch.dtype) -> Dict[str, int]:
         "PIPELINE_DEPTH": int(cfg.get("PIPELINE_DEPTH",
                                       DEFAULT_PIPELINE_DEPTH)),
     }
+    if ragged(cfg, dtype.itemsize):
+        tm, tn, tk = tile(cfg, dtype.itemsize)
+        _, seg, sub = k_segments(cfg, dtype.itemsize)
+        defines.update(RAGGED=1, TILE_M=tm, TILE_N=tn, TILE_K=tk, K_SEG=seg,
+                       K_SUB=sub)
+    return defines
 
 
 def gemm_plain(a: torch.Tensor, b: torch.Tensor,
@@ -218,12 +290,11 @@ class Gemm:
     def __init__(self, M: int, N: int, K: int, config: Optional[Config],
                  dtype: torch.dtype):
         cfg = _merged(config)
-        validate_config(cfg, M, N, K)
         if dtype not in DTYPES.values():
             raise ValueError(f"the GEMM takes float32 or bfloat16, not {dtype}")
+        validate_config(cfg, M, N, K, dtype.itemsize)
         if cfg["ACC_IN_OUTPUT"] and dtype != torch.float32:
             raise ValueError("ACC_IN_OUTPUT requires a float32 output")
-        block_threads(cfg, dtype.itemsize)     # the build's own refusals
         self.M, self.N, self.K = M, N, K
         self.config = cfg
         self.dtype = dtype
@@ -368,7 +439,7 @@ def traffic(config: Config, M: int, N: int, K: int,
     cannot build raises ``ValueError``.
     """
     cfg = _merged(config)
-    validate_config(cfg, M, N, K)
+    validate_config(cfg, M, N, K, elt_bytes)
     bm, bn = cfg["BLOCK_M"], cfg["BLOCK_N"]
     nbytes = elt_bytes * (M * K * (N // bn) + K * N * (M // bm) + M * N)
     return KernelCost(flops=flops(M, N, K), bytes=nbytes)

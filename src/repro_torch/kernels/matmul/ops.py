@@ -47,20 +47,23 @@ BLOCK_MN = (32, 64, 128)
 BLOCK_K = (8, 16, 32, 64)
 
 
+def _pick(d: int, cands) -> int:
+    """The largest of ``cands`` that divides ``d``; failing that, the
+    largest divisor of ``d`` not above the largest of them (1 divides
+    every dim, so a prime dim gets 1)."""
+    for c in sorted(cands, reverse=True):
+        if d % c == 0:
+            return c
+    return max(c for c in range(1, min(d, max(cands)) + 1) if d % c == 0)
+
+
 def heuristic_config(M: int, N: int, K: int) -> Dict[str, Any]:
-    """Largest listed blocks that divide the problem; sensible defaults."""
-    def pick(d, cands):
-        for c in sorted(cands, reverse=True):
-            if d % c == 0:
-                return c
-        # nothing divides d (odd/prime dims): return d itself — the
-        # registry's project_feasible repairs out-of-list values to the
-        # nearest in-space point before the config is ever served
-        return d
+    """Largest listed blocks that divide the problem (:func:`_pick`; the
+    build takes every block that divides its dim), sensible defaults."""
     return {
-        "BLOCK_M": pick(M, BLOCK_MN),
-        "BLOCK_N": pick(N, BLOCK_MN),
-        "BLOCK_K": pick(K, BLOCK_K),
+        "BLOCK_M": _pick(M, BLOCK_MN),
+        "BLOCK_N": _pick(N, BLOCK_MN),
+        "BLOCK_K": _pick(K, BLOCK_K),
         "GRID_ORDER": "mn", "INNER_STEPS": 1,
         "ACC_DTYPE": "float32", "ACC_IN_OUTPUT": False, "TRANS_A": False,
     }

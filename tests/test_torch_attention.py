@@ -26,6 +26,8 @@ from repro_torch.kernels.attention import (  # noqa: E402
     block_threads, flash_attention, flash_plain, geometry, heuristic_config,
     kv_end, kv_steps, make_flash_attention, shape_key, smem_footprint,
     tuning_space, validate_config)
+from repro_torch.kernels.attention.flash import (  # noqa: E402
+    tile as port_tile)
 from repro_torch.kernels.attention.ref import NEG  # noqa: E402
 from repro_torch.kernels.attention import ops as port_ops  # noqa: E402
 from repro_torch.tune import tune_kernel  # noqa: E402
@@ -111,8 +113,15 @@ def test_block_sweep(bq, bk, d):
 def test_invalid_blocks_rejected():
     with pytest.raises(ValueError):
         make_flash_attention(256, 256, 64, {"BLOCK_Q": 100, "BLOCK_K": 128})
-    with pytest.raises(ValueError):          # not whole warps
-        make_flash_attention(256, 256, 64, {"BLOCK_Q": 4, "BLOCK_K": 128})
+    # 4 query rows are not whole warps of row groups: the build takes the
+    # block on a tile of 8 rows (32 threads), the rows past it zeros and
+    # not stored, and its plain version equals the JAX kernel
+    cfg = {"BLOCK_Q": 4, "BLOCK_K": 128}
+    assert port_tile(cfg, 64) == (8, 128, 64)
+    assert block_threads(cfg, 64) == 32
+    assert geometry(cfg, 64) == {"TM": 4, "TK": 16, "TN": 8, "TD": 4,
+                                 "threads": 32}
+    _compare(256, 256, 64, cfg, True)
     with pytest.raises(ValueError):          # 1024 threads
         make_flash_attention(512, 256, 64, {"BLOCK_Q": 512, "BLOCK_K": 128})
     with pytest.raises(ValueError):

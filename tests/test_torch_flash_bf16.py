@@ -38,7 +38,7 @@ from repro_torch.kernels.attention import (  # noqa: E402
     validate_config)
 from repro_torch.kernels.attention import ops  # noqa: E402
 from repro_torch.kernels.attention.flash import (  # noqa: E402
-    FMA_EFFICIENCY, SOURCE)
+    FMA_EFFICIENCY, SOURCE, tile)
 from repro_torch.tune import tune_kernel  # noqa: E402
 
 BF16_TOL = 3e-2
@@ -136,20 +136,36 @@ def test_bf16_geometry_footprint_and_registers(cfg, d, want):
 
 
 def test_bf16_build_refuses_what_the_mma_cannot_tile():
-    # each of these passes the float32 build's checks
-    for cfg, d in (({"BLOCK_Q": 8, "BLOCK_K": 64}, 64),
-                   ({"BLOCK_Q": 64, "BLOCK_K": 8}, 64)):
+    # blocks of 8 and D = 24 are no mma tiles: the bfloat16 build takes
+    # them on tiles rounded up to 16 (the rows, keys and dims past the
+    # block zero-filled, the keys' scores -inf, none stored), as the
+    # float32 build takes them
+    for cfg, d, want in (({"BLOCK_Q": 8, "BLOCK_K": 64}, 64, (16, 64, 64)),
+                         ({"BLOCK_Q": 64, "BLOCK_K": 8}, 64, (64, 16, 64)),
+                         ({"BLOCK_Q": 64, "BLOCK_K": 64}, 24, (64, 64, 32))):
         validate_config(cfg, 128, 128, d)
         make_flash_attention(128, 128, d, cfg)
-        with pytest.raises(ValueError, match="multiples of 16"):
-            make_flash_attention(128, 128, d, cfg, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        validate_config({"BLOCK_Q": 64, "BLOCK_K": 64}, 128, 128, 24, 2)
+        fn = make_flash_attention(128, 128, d, cfg, dtype=torch.bfloat16)
+        tq, tk, td = tile(fn.config, d, 2)
+        assert (tq, tk, td) == want
+        assert geometry(cfg, d, 2) == {"WARPS": tq // 16, "NT": tk // 8,
+                                       "DT": td // 8, "threads": 2 * tq}
+        assert smem_footprint(cfg, d, 2) == \
+            (tq + 2 * 2 * tk) * (2 * td + 16)
+        # the model prices the rounded tile
+        assert math.isfinite(analytical_time(cfg, H100_SXM, 128, 128, d, 2))
+        # the plain version equals the JAX package's kernel there
+        q, k, v = _qkv((), 128, 128, d)
+        want_out = ref_pkg.make_flash_attention(
+            128, 128, d, cfg, causal=True, dtype=jnp.bfloat16,
+            interpret=True)(*(jnp.asarray(x, jnp.bfloat16)
+                              for x in (q, k, v)))
+        got = fn(*(torch.from_numpy(x).bfloat16() for x in (q, k, v)))
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want_out, np.float32),
+                                   rtol=BF16_TOL, atol=BF16_TOL)
     with pytest.raises(ValueError, match="at most 512"):
         validate_config({"BLOCK_Q": 320, "BLOCK_K": 64}, 640, 128, 64, 2)
-    # the model calls such configs infeasible
-    assert math.isinf(analytical_time({"BLOCK_Q": 64, "BLOCK_K": 8},
-                                      H100_SXM, 128, 128, 64, 2))
 
 
 def _smoke():

@@ -29,7 +29,8 @@ from repro_torch.kernels.matmul import (  # noqa: E402
     GEMM, block_threads, gemm_plain, heuristic_config, lookup_config,
     make_matmul, micro_tile, smem_footprint, warp_tile)
 from repro_torch.kernels.matmul import ops  # noqa: E402
-from repro_torch.kernels.matmul.matmul import SOURCE  # noqa: E402
+from repro_torch.kernels.matmul.matmul import (SOURCE, _defines,  # noqa: E402
+                                               ragged, tile)
 
 BF16_TOL = 3e-2
 SHAPE = {"M": 512, "N": 512, "K": 512, "dtype": "bfloat16"}
@@ -87,11 +88,23 @@ def test_warp_tile(cfg, want):
 
 
 def test_warp_tile_refuses_what_the_mma_cannot_tile():
-    # BLOCK_M 8 passes validate_config (the float32 build takes it)
-    with pytest.raises(ValueError, match="multiples of 16"):
-        make_matmul(64, 64, 64, {"BLOCK_M": 8, "BLOCK_N": 64,
-                                 "BLOCK_K": 16}, out_dtype=torch.bfloat16)
-    make_matmul(64, 64, 64, {"BLOCK_M": 8, "BLOCK_N": 64, "BLOCK_K": 16})
+    # BLOCK_M 8 is no mma tile: the bfloat16 build takes it on a tile of 16
+    # rows (the 8 past the block zero-filled and not stored), as the
+    # float32 build takes it
+    cfg = {"BLOCK_M": 8, "BLOCK_N": 64, "BLOCK_K": 16}
+    fn = make_matmul(64, 64, 64, cfg, out_dtype=torch.bfloat16)
+    make_matmul(64, 64, 64, cfg)
+    assert tile(fn.config, 2) == (16, 64, 16) and ragged(fn.config, 2)
+    assert warp_tile(cfg) == (16, 32, 64) == (16, 32, block_threads(cfg, 2))
+    assert smem_footprint(cfg, 2) == 2 * 2 * 16 * (16 + 64)
+    assert _defines(fn.config, torch.bfloat16)["TILE_M"] == 16
+    # the plain version equals the JAX package's kernel at that config
+    got, want = _compare(64, 64, 64, cfg)
+    np.testing.assert_allclose(got, want, rtol=BF16_TOL, atol=BF16_TOL)
+    # what the card cannot launch stays refused, naming the limit
+    with pytest.raises(ValueError, match="at most 1024"):
+        make_matmul(512, 512, 64, {"BLOCK_M": 512, "BLOCK_N": 512,
+                                   "BLOCK_K": 16}, out_dtype=torch.bfloat16)
 
 
 def test_a_bf16_product_resolves_what_was_tuned_for_bf16(tmp_path,

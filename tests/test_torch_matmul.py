@@ -22,6 +22,7 @@ from repro_torch.core import H100_SXM, SearchSpace, Parameter  # noqa: E402
 from repro_torch.kernels.matmul import (  # noqa: E402
     DEFAULT_CONFIG, analytical_time, gemm_plain, heuristic_config,
     make_matmul, smem_footprint, tuning_space, validate_config)
+from repro_torch.kernels.matmul.matmul import tile  # noqa: E402
 from test_kernels_matmul import CONFIGS  # noqa: E402
 
 
@@ -213,8 +214,18 @@ def test_pipeline_depth_is_the_number_of_shared_memory_stages():
 
 @pytest.mark.parametrize("cfg", [
     {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 64, "PIPELINE_DEPTH": 1},
-    {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 4},
+    {"BLOCK_M": 128, "BLOCK_N": 128, "BLOCK_K": 4, "PIPELINE_DEPTH": 1},
 ])
 def test_validate_rejects_what_the_ring_cannot_take(cfg):
     with pytest.raises(ValueError):
         make_matmul(256, 256, 256, cfg)
+    # a ring of two stages takes the block in both builds, BLOCK_K 4 too
+    # (no whole 16-byte chunks: the build copies element by element, and
+    # in bfloat16 pads the depth to the mma's 8), and computes the JAX
+    # kernel's product
+    ring = {**cfg, "PIPELINE_DEPTH": 2}
+    bk = cfg["BLOCK_K"]
+    for dtype, depth in ((torch.float32, bk), (torch.bfloat16, max(bk, 8))):
+        fn = make_matmul(256, 256, 256, ring, out_dtype=dtype)
+        assert tile(fn.config, dtype.itemsize)[2] == depth
+    _compare(256, 256, 256, ring)
