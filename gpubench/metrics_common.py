@@ -1,0 +1,19 @@
+"""Arithmetic that more than one per-layer reader shares."""
+
+
+def idle_pct(r):
+    """100 x (1 - busy / span) of the traced segment; None without a
+    device trace."""
+    busy, window = r.trace.get("busy_s"), r.trace.get("window_s")
+    if busy is None or not window:
+        return None
+    return 100.0 * (1.0 - busy / window)
+
+
+def roofline_pct(r, driver: str):
+    """The traced calls' summed bound over all device time in the span,
+    for a cell run by ``driver``; None elsewhere or without device time."""
+    bound, device = r.counters.get("segment_bound_s"), r.trace.get("device_s")
+    if r.driver != driver or not bound or not device:
+        return None
+    return 100.0 * bound / device
