@@ -56,6 +56,7 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from . import trace
 from .artifacts import CompiledArtifact
 from .evaluators import Evaluator, KernelSpec, Measurement
 from .failures import (CircuitBreakerTripped, CompileError, FailureRecord,
@@ -198,9 +199,10 @@ class EngineStats:
     batches: int = 0
     max_batch: int = 0
     compile_total_s: float = 0.0    # sum of per-config compile durations
+                                    # (the ``tune.compile`` spans' clock)
     compile_wait_s: float = 0.0     # wall time the serial loop blocked on
                                     # compile futures
-    measure_total_s: float = 0.0
+    measure_total_s: float = 0.0    # the ``tune.measure`` spans' clock
     wall_s: float = 0.0
 
     @property
@@ -263,9 +265,9 @@ class EvaluationEngine:
 
     # -- internals -----------------------------------------------------------
     def _timed_prepare(self, config: Config) -> Tuple[Any, float]:
-        t0 = time.perf_counter()
-        prepared = self.evaluator.prepare(self.spec, config)
-        return prepared, time.perf_counter() - t0
+        with trace.timed("tune.compile") as clock:
+            prepared = self.evaluator.prepare(self.spec, config)
+        return prepared, clock.seconds
 
     def _submit(self, pool: Optional[ThreadPoolExecutor],
                 config: Config) -> "Future":
@@ -357,13 +359,14 @@ class EvaluationEngine:
                         and cfg.objective.is_default
                         and math.isfinite(self._incumbent)):
                     threshold = cfg.prune_factor * self._incumbent
-                t_meas0 = time.perf_counter()
+                clock = trace.timed("tune.measure")
                 try:
-                    m = self.evaluator.measure(self.spec, config, prepared,
-                                               prune_threshold_s=threshold)
+                    with clock:
+                        m = self.evaluator.measure(
+                            self.spec, config, prepared,
+                            prune_threshold_s=threshold)
                 finally:
-                    self.stats.measure_total_s += (time.perf_counter()
-                                                   - t_meas0)
+                    self.stats.measure_total_s += clock.seconds
                 if not m.ok:
                     # legacy not-ok Measurement: a failure trial, not a
                     # crash.  Coerce the objective to inf — a not-ok

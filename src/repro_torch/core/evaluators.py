@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from . import verify
+from . import trace, verify
 from .cost import KernelCost, declared_cost
 from .artifacts import (PROVENANCE_NONE, ArtifactStore, CompiledArtifact,
                         spec_fingerprint)
@@ -407,12 +407,13 @@ class WallClockEvaluator(Evaluator):
         ident = (spec.name, repr(sorted(spec.meta.items())),
                  spec.make_args, spec.reference)
         if self._inputs is None or self._inputs[0] != ident:
-            rng = np.random.default_rng(self.seed)
-            args = tuple(torch.as_tensor(x).to(self.device)
-                         for x in spec.make_args(rng))
-            ref_out = (spec.reference(*args)
-                       if self.verify_outputs and spec.reference is not None
-                       else None)
+            with trace.span("tune.inputs"):
+                rng = np.random.default_rng(self.seed)
+                args = tuple(torch.as_tensor(x).to(self.device)
+                             for x in spec.make_args(rng))
+                ref_out = (spec.reference(*args)
+                           if self.verify_outputs
+                           and spec.reference is not None else None)
             self._inputs = (ident, args, ref_out)
         return self._inputs[1], self._inputs[2]
 

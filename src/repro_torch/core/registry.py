@@ -45,6 +45,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
 
 import numpy as np
 
+from . import trace
 from .cache import CacheEntry, TuningCache, default_cache
 from .envknobs import env_str
 from .failures import EvaluationError
@@ -545,6 +546,23 @@ def lookup_resolved(kernel: "TunableKernel | str", shape: Shape, *,
     start entirely).  ``tune_kwargs`` (strategy/budget/evaluator/seed/...)
     flow to ``repro_torch.tune.api.tune_kernel`` when a search actually runs.
     """
+    with trace.span("registry.lookup"):
+        res = _lookup_resolved(kernel, shape, profile=profile, cache=cache,
+                               policy=policy, registry=registry,
+                               transfer=transfer, predictor=predictor,
+                               **tune_kwargs)
+    trace.count("registry.lookup." + res.provenance)
+    return res
+
+
+def _lookup_resolved(kernel: "TunableKernel | str", shape: Shape, *,
+                     profile: Optional[DeviceProfile],
+                     cache: Optional[TuningCache],
+                     policy: "AutotunePolicy | str | None",
+                     registry: Optional[KernelRegistry],
+                     transfer: "bool | int | None",
+                     predictor: Any,
+                     **tune_kwargs) -> Resolution:
     k = resolve(kernel, registry)
     profile = resolve_profile(profile)
     cache = cache if cache is not None else default_cache()

@@ -24,6 +24,7 @@ from typing import Any, Mapping, Optional
 import torch
 
 from .sharding import _is_dtensor, per_batch
+from ..core import trace
 from ..kernels.matmul.ops import tuning_space as gemm_space
 from ..models.model import (DEFAULT_RUN, RunConfig, decode_step, forward,
                             loss_fn)
@@ -53,9 +54,11 @@ def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
         live = tree_map(lambda t: t.detach().requires_grad_(True), params)
         leaves = tree_leaves(live)
         with torch.enable_grad():
-            loss, metrics = loss_fn(cfg, live, batch, run)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
+            with trace.span("train.forward"):
+                loss, metrics = loss_fn(cfg, live, batch, run)
+            with trace.span("train.backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                            materialize_grads=True)
         grad_of = dict(zip(map(id, leaves), grads))
         return (tree_map(lambda t: grad_of[id(t)], live),
                 {k: v.detach() for k, v in metrics.items()})
@@ -102,7 +105,9 @@ def make_train_step(cfg, run: RunConfig = DEFAULT_RUN,
                 del g
             grads = tree_map(lambda a: (a / mb).float(), grads)
             metrics = {k: v / mb for k, v in metrics.items()}
-        params, opt, opt_metrics = adamw.update_(opt_cfg, grads, opt, params)
+        with trace.span("train.update"):
+            params, opt, opt_metrics = adamw.update_(opt_cfg, grads, opt,
+                                                     params)
         return params, opt, {**metrics, **opt_metrics}
 
     return step

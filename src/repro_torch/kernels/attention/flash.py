@@ -59,6 +59,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ...core import trace
 from ...core.cost import KernelCost
 from ...core.profiles import DeviceProfile
 from .. import build
@@ -364,12 +365,13 @@ class FlashAttention:
             self.compile()
         lib = self._lib
         heads = math.prod(q.shape[:-2])
-        out = torch.empty(q.shape, dtype=self.dtype, device=q.device)
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                               out.data_ptr(), heads, self.Sq, self.Sk,
-                               int(self.causal), self.scale,
-                               q.device.index, stream)
+        with trace.span("kernel.launch"):
+            out = torch.empty(q.shape, dtype=self.dtype, device=q.device)
+            stream = torch.cuda.current_stream(q.device).cuda_stream
+            err = lib.flash_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                   out.data_ptr(), heads, self.Sq, self.Sk,
+                                   int(self.causal), self.scale,
+                                   q.device.index, stream)
         if err:
             raise RuntimeError(
                 f"flash launch failed ({err}: "

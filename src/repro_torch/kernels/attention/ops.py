@@ -22,7 +22,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ...core import SearchSpace, Tuner, TuningCache
+from ...core import SearchSpace, Tuner, TuningCache, trace
 from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
@@ -227,13 +227,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     in one launch.  With ``config=None`` the configuration comes from the
     registry for the profile of ``q``'s device (``profile`` overrides) and
     ``q``'s dtype."""
-    Sq, D = q.shape[-2:]
-    Sk = k.shape[-2]
-    cfg = config or lookup_config(Sq, Sk, D, causal,
-                                  resolve_profile(profile, q.device),
-                                  policy=policy, dtype=q.dtype)
-    return make_flash_attention(Sq, Sk, D, cfg, causal=causal,
-                                dtype=q.dtype)(q, k, v)
+    with trace.span("op.flash_attention"):
+        Sq, D = q.shape[-2:]
+        Sk = k.shape[-2]
+        cfg = config or lookup_config(Sq, Sk, D, causal,
+                                      resolve_profile(profile, q.device),
+                                      policy=policy, dtype=q.dtype)
+        return make_flash_attention(Sq, Sk, D, cfg, causal=causal,
+                                    dtype=q.dtype)(q, k, v)
 
 
 # ---------------------------------------------------------------------------

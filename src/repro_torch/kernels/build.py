@@ -33,6 +33,7 @@ import threading
 import time
 from typing import Any, Dict, List, Mapping, Sequence, Tuple
 
+from ..core import trace
 from ..core.cache import FileLock
 from ..core.paths import KERNEL_BUILD_DIR as BUILD_DIR
 #: one JSON line per nvcc run, in BUILD_DIR
@@ -157,9 +158,10 @@ def log_path(name: str, address: str) -> str:
 def load(source: str, defines: Mapping[str, int], name: str
          ) -> Tuple[ctypes.CDLL, str]:
     """Build (if needed) and load one library; loaded once per process."""
-    lib_path, address = build(source, defines, name)
-    with _LOCK:
-        lib = _LIBS.get(lib_path)
-        if lib is None:
-            lib = _LIBS[lib_path] = ctypes.CDLL(lib_path)
+    with trace.span("build.load"):
+        lib_path, address = build(source, defines, name)
+        with _LOCK:
+            lib = _LIBS.get(lib_path)
+            if lib is None:
+                lib = _LIBS[lib_path] = ctypes.CDLL(lib_path)
     return lib, address

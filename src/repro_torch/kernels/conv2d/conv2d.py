@@ -76,6 +76,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ...core import trace
 from ...core.cost import KernelCost
 from ...core.profiles import DeviceProfile
 from .. import build
@@ -508,12 +509,13 @@ class Conv2d:
             raise ValueError("the conv2d kernel takes contiguous operands")
         self.compile()
         lib = self._lib
-        out = torch.empty((self.H, self.W), dtype=self.dtype,
-                          device=image.device)
-        stream = torch.cuda.current_stream(image.device).cuda_stream
-        err = lib.conv2d_launch(image.data_ptr(), filt.data_ptr(),
-                                out.data_ptr(), self.H, self.W, self.weight,
-                                image.device.index, stream)
+        with trace.span("kernel.launch"):
+            out = torch.empty((self.H, self.W), dtype=self.dtype,
+                              device=image.device)
+            stream = torch.cuda.current_stream(image.device).cuda_stream
+            err = lib.conv2d_launch(image.data_ptr(), filt.data_ptr(),
+                                    out.data_ptr(), self.H, self.W,
+                                    self.weight, image.device.index, stream)
         if err:
             raise RuntimeError(
                 f"conv2d launch failed ({err}: "

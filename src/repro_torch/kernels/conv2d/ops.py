@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ...core import SearchSpace, Tuner, TuningCache
+from ...core import SearchSpace, Tuner, TuningCache, trace
 from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
@@ -222,13 +222,14 @@ def conv2d(image: torch.Tensor, filt: torch.Tensor,
     profile of ``image``'s device (``profile`` overrides) and ``image``'s
     dtype.
     """
-    H, W = image.shape
-    Fh, Fw = filt.shape
-    cfg = config or lookup_config(H, W, Fh, Fw,
-                                  resolve_profile(profile, image.device),
-                                  policy=policy, dtype=image.dtype)
-    return make_conv2d(H, W, Fh, Fw, cfg, weight=weight,
-                       dtype=image.dtype)(image, filt)
+    with trace.span("op.conv2d"):
+        H, W = image.shape
+        Fh, Fw = filt.shape
+        cfg = config or lookup_config(H, W, Fh, Fw,
+                                      resolve_profile(profile, image.device),
+                                      policy=policy, dtype=image.dtype)
+        return make_conv2d(H, W, Fh, Fw, cfg, weight=weight,
+                           dtype=image.dtype)(image, filt)
 
 
 # ---------------------------------------------------------------------------

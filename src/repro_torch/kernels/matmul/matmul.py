@@ -61,6 +61,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from ...core import trace
 from ...core.cost import KernelCost
 from ...core.profiles import DeviceProfile
 from .. import build
@@ -358,10 +359,13 @@ class Gemm:
         if lib is None:
             self.compile()
             lib = self._lib
-        c = torch.empty((self.M, self.N), dtype=self.dtype, device=a.device)
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.gemm_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
-                              self.M, self.N, self.K, a.device.index, stream)
+        with trace.span("kernel.launch"):
+            c = torch.empty((self.M, self.N), dtype=self.dtype,
+                            device=a.device)
+            stream = torch.cuda.current_stream(a.device).cuda_stream
+            err = lib.gemm_launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                  self.M, self.N, self.K, a.device.index,
+                                  stream)
         if err:
             raise RuntimeError(
                 f"GEMM launch failed ({err}: "

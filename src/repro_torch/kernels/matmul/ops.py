@@ -19,7 +19,7 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ...core import SearchSpace, Tuner, TuningCache
+from ...core import SearchSpace, Tuner, TuningCache, trace
 from ...core.profiles import H100_SXM, DeviceProfile, resolve_profile
 from ...core.registry import AutotunePolicy, Shape, lookup, tunable
 from ...core.space import Config
@@ -212,18 +212,20 @@ def matmul(a: torch.Tensor, b: torch.Tensor,
     epilogue is plain PyTorch; the kernel does the FLOP-heavy product, as
     in the paper's GEMM.
     """
-    trans = bool((config or {}).get("TRANS_A", False))
-    M = a.shape[1] if trans else a.shape[0]
-    K = a.shape[0] if trans else a.shape[1]
-    N = b.shape[1]
-    cfg = config or lookup_config(M, N, K, resolve_profile(profile, a.device),
-                                  policy=policy, dtype=a.dtype)
-    out = make_matmul(M, N, K, cfg, out_dtype=a.dtype)(a, b)
-    if alpha != 1.0:
-        out = alpha * out
-    if c is not None and beta != 0.0:
-        out = out + beta * c
-    return out
+    with trace.span("op.matmul"):
+        trans = bool((config or {}).get("TRANS_A", False))
+        M = a.shape[1] if trans else a.shape[0]
+        K = a.shape[0] if trans else a.shape[1]
+        N = b.shape[1]
+        cfg = config or lookup_config(M, N, K,
+                                      resolve_profile(profile, a.device),
+                                      policy=policy, dtype=a.dtype)
+        out = make_matmul(M, N, K, cfg, out_dtype=a.dtype)(a, b)
+        if alpha != 1.0:
+            out = alpha * out
+        if c is not None and beta != 0.0:
+            out = out + beta * c
+        return out
 
 
 # ---------------------------------------------------------------------------

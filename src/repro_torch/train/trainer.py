@@ -38,6 +38,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from ..ckpt import CheckpointManager
+from ..core import trace
 from ..data import DataConfig, TokenSource, to_device
 from ..dist import partition
 from ..dist.sharding import use_sharding
@@ -174,26 +175,28 @@ class Trainer:
                  if self.mesh is not None else contextlib.nullcontext())
         target = self.tc.total_steps if steps is None else self.step + steps
         while self.step < target:
-            batch = self._batch(self.step)
-            self.monitor.step_start()
-            with scope():
-                self.params, self.opt_state, metrics = step_fn(
-                    self.params, self.opt_state, batch)
-            # the step's end: one host read of every metric
-            values = torch.stack([v.float() for v in
-                                  partition.gather(metrics).values()])
-            m = dict(zip(metrics, values.tolist()))
-            self.monitor.step_end()
-            self.step += 1
-            self.history.append({"step": self.step, **m})
-            if self.step % self.tc.log_every == 0:
-                log.info("step %d loss %.4f", self.step, m["loss"])
-            if self.step % self.tc.ckpt_every == 0:
-                self.save()
-            if simulate_failure_at is not None \
-                    and self.step >= simulate_failure_at:
-                raise RuntimeError(
-                    f"simulated node failure at step {self.step}")
+            with trace.span("train.step"):
+                batch = self._batch(self.step)
+                self.monitor.step_start()
+                with scope():
+                    self.params, self.opt_state, metrics = step_fn(
+                        self.params, self.opt_state, batch)
+                # the step's end: one host read of every metric
+                with trace.span("train.host_read"):
+                    values = torch.stack([v.float() for v in
+                                          partition.gather(metrics).values()])
+                    m = dict(zip(metrics, values.tolist()))
+                self.monitor.step_end()
+                self.step += 1
+                self.history.append({"step": self.step, **m})
+                if self.step % self.tc.log_every == 0:
+                    log.info("step %d loss %.4f", self.step, m["loss"])
+                if self.step % self.tc.ckpt_every == 0:
+                    self.save()
+                if simulate_failure_at is not None \
+                        and self.step >= simulate_failure_at:
+                    raise RuntimeError(
+                        f"simulated node failure at step {self.step}")
         self.ckpt.wait()
         return {"final_step": self.step, "history": self.history,
                 "straggler_events": self.monitor.events}
