@@ -135,12 +135,23 @@ each printing its own lines:
      serve, the engine's resolutions with provenance, then bf16 against
      float32 (8e-2; the SSM families SERVE_SSM_BF16_TOL) and float32
      decode against forward (1e-4; MoE at capacity factor 8) on the same
-     weights, upcast leaf by leaf; then train: the training path
-     (loss_fn -> make_train_step -> Trainer), which launches none of the
-     kernels: granite-3-2b's loss and gradients at 2 layers in float32 on
-     the card against the CPU; all 40 layers in bf16 trained 20 steps at
+     weights, upcast leaf by leaf; then adamw: the fused AdamW passes
+     (optim/fused.py) against the leafwise step on the card, bit for bit
+     given the same scalars at every dtype combination and at odd sizes
+     and unaligned views, the norm within 1e-6 of a float64 one, the same
+     bits run to run, update_ counted fused; then granite-3-2b's own
+     leaves (bf16 projections and embedding, float32 norm scales and
+     moments, 2.53 B parameters): the norm against float64, each leaf's
+     update bit for bit against the leafwise step, one update_ timed
+     beside the leafwise step and its byte bound, its launches counted;
+     then train: the training path
+     (loss_fn -> make_train_step -> Trainer), whose only kernels of this
+     repo are AdamW's passes: granite-3-2b's loss and gradients at 2
+     layers in float32 on the card against the CPU; all 40 layers in bf16
+     trained 20 steps at
      8 x 256 tokens through Trainer (step ms from CUDA events, one traced
-     step, the bound, an async full-depth checkpoint verified); remat,
+     step, the bound, 2 L + 1 AdamW launches a step over its L leaves, an
+     async full-depth checkpoint verified); remat,
      ce_chunk and microbatch variants on the first batch with their peak
      memory; a crash at step 5 restored from step 4 at 2 layers under
      deterministic algorithms (in a spawned process: deterministic cuBLAS
@@ -153,7 +164,9 @@ each printing its own lines:
      dist (an NCCL world of one rank,
      make_host_mesh() -> a 1x1 ("data", "model") mesh; granite-3-2b at
      full width and depth trained 4 steps at 8 x 256 through Trainer with
-     and without the mesh, losses within 1e-3, step ms and peak; a
+     and without the mesh (DTensor leaves: AdamW's passes on their
+     shards), losses within 1e-3, 2 L + 1 AdamW launches a step on
+     each, step ms and peak; a
      2-layer checkpoint of the mesh run restored onto the mesh with
      shardings=, bit for bit; the elastic mesh and validate_batch),
      dryrun (analyze_cell in fake worlds of 256 and 512 ranks with meta
@@ -217,12 +230,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import importlib
+import itertools
 import json
 import logging
 import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -269,8 +284,10 @@ from repro_torch.models import (SHAPES, RunConfig,  # noqa: E402
                                 init_cache, init_model, loss_fn, model_defs,
                                 params_from_numpy, tree_leaves, tree_map,
                                 tree_paths)
+from repro_torch.models.params import torch_dtype  # noqa: E402
 from repro_torch.optim import (OptimConfig, OptState,  # noqa: E402
                                abstract_state)
+from repro_torch.optim import fused as adamw_fused  # noqa: E402
 from repro_torch.optim import update_ as adamw_update_  # noqa: E402
 from repro_torch.serve import (BackgroundTuner, ConfigSlot,  # noqa: E402
                                JobStatus, OnlineTuneConfig, ServeEngine,
@@ -283,7 +300,8 @@ SOURCE = "src/repro_torch/kernels/matmul/csrc/gemm.cu"
 #: each ported kernel's CUDA source
 SOURCES = {"gemm_scratch": SOURCE, "gemm_inplace": SOURCE,
            "conv2d": "src/repro_torch/kernels/conv2d/csrc/conv2d.cu",
-           "flash_attention": "src/repro_torch/kernels/attention/csrc/flash.cu"}
+           "flash_attention": "src/repro_torch/kernels/attention/csrc/flash.cu",
+           "adamw": "src/repro_torch/optim/csrc/adamw.cu"}
 #: the TPU kernel bodies the CUDA kernels replace (JAX package)
 REPLACES = {"gemm_scratch": "src/repro/kernels/matmul/matmul.py:54",
             "gemm_inplace": "src/repro/kernels/matmul/matmul.py:84",
@@ -1956,7 +1974,7 @@ LIMITS = ("smem_per_block_optin", "max_threads_per_block", "sm_count",
 
 def zero_counts():
     """Set every kernel's launch count to 0 (just before a path)."""
-    for counts in (LAUNCHES, cv.LAUNCHES, fa.LAUNCHES):
+    for counts in (LAUNCHES, cv.LAUNCHES, fa.LAUNCHES, adamw_fused.LAUNCHES):
         for key in counts:
             counts[key] = 0
 
@@ -1964,6 +1982,22 @@ def zero_counts():
 def read_counts():
     """Every kernel's launch count (just after a path)."""
     return launch_counts()
+
+
+def _adamw_launches(counts, steps, leaves, device, what):
+    """AdamW's launches in ``counts`` (read_counts) after ``steps`` steps
+    over ``leaves`` non-empty leaves: on the card one norm and one update
+    launch a leaf and one norm finish a step, else a raise; on the CPU
+    none (the leafwise step)."""
+    got = {k: counts[k] for k in adamw_fused.LAUNCHES}
+    cuda = device.type == "cuda"
+    want = {"adamw_norm": steps * leaves if cuda else 0,
+            "adamw_norm_finish": steps if cuda else 0,
+            "adamw_update": steps * leaves if cuda else 0}
+    if got != want:
+        raise AssertionError(f"{what}: AdamW launched {got}, not {want} "
+                             f"({steps} steps over {leaves} leaves)")
+    return got
 
 
 def _check_launched(counts, names, what):
@@ -3042,6 +3076,251 @@ TRAIN_VARIANT_TOL = 2e-3
 TRAIN_RESUME_RTOL = 1e-5
 
 
+#: [adamw]: elements of each layout case, (n, offsets of p, g, m, v):
+#: odd sizes from fresh tensors, views whose start the vector width does
+#: not divide (one common head, and offsets no head reconciles), fewer
+#: elements than a vector, none
+ADAMW_CASES = [(1_000_003, (0, 0, 0, 0)), (4099, (3, 3, 3, 3)),
+               (4099, (1, 0, 2, 0)), (5, (0, 0, 0, 0)), (0, (0, 0, 0, 0))]
+#: [adamw]: the norm against a float64 one, relative
+ADAMW_NORM_RTOL = 1e-6
+
+
+def _adamw_view(n, offset, dtype, device, gen, scale=1.0, nonneg=False):
+    """A view of ``n`` elements starting ``offset`` elements into a new
+    buffer, drawn from ``gen``."""
+    buf = torch.empty(n + offset, dtype=dtype, device=device)
+    x = torch.randn(n, generator=gen, device=device) * scale
+    buf[offset:] = (x.abs() if nonneg else x).to(dtype)
+    return buf[offset:]
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def _same_bits(a, b):
+    return bool(torch.equal(_bits(a), _bits(b)))
+
+
+def _adamw_leaves(cfg, dtypes, n, offsets, device, seed, gscale=3.0):
+    """One leaf's (p, g, m, v) as views at ``offsets``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    mdt = torch_dtype(cfg.moment_dtype)
+    (pdt, gdt), (op, og, om, ov) = dtypes, offsets
+    return (_adamw_view(n, op, pdt, device, gen),
+            _adamw_view(n, og, gdt, device, gen, gscale),
+            _adamw_view(n, om, mdt, device, gen, 0.1),
+            _adamw_view(n, ov, mdt, device, gen, 0.1, nonneg=True))
+
+
+def phase_adamw(device):
+    """[adamw]: the fused AdamW passes (optim/fused.py, csrc/adamw.cu)
+    against the leafwise step on the card: every dtype combination at
+    every ADAMW_CASES layout bit for bit on p, m and v given the same
+    scalars (clip on); the norm over leaves of both gradient dtypes and
+    every layout within ADAMW_NORM_RTOL of a float64 norm, the same bits
+    twice; update_ twice from one state, the same bits; update_ against
+    update where the clip is off (the same scalars), bit for bit, counted
+    optim.adamw.fused; the host's time to issue update_ over 11 leaves;
+    then granite-3-2b's own leaves (_adamw_granite).
+    On the CPU: update_ counted leafwise, equal to update."""
+    from repro_torch.core import trace
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    record = {"cases": 0}
+    count = torch.tensor(3, dtype=torch.int32, device=device)
+    dense = lambda leaves: {f"w{i}": t for i, t in enumerate(leaves)}
+
+    def small_state(cfg, seed, gscale):
+        leaves = [_adamw_leaves(cfg, (torch.bfloat16, torch.float32), n,
+                                (0, 0, 0, 0), device, seed + i, gscale)
+                  for i, n in enumerate((4099, 5, 1_000_003))]
+        p, g, m, v = (dense(x) for x in zip(*leaves))
+        return p, g, OptState(m, v, count.clone())
+
+    # update_ against update where the clip is off: the same scalars
+    cfg = OptimConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    p, g, st = small_state(cfg, 11, 1e-4)
+    want_p, want_s, want_m = adamw.update(cfg, g, st, p)
+    trace.take()
+    trace.enable()
+    try:
+        adamw.update_(cfg, g, st, p)
+        counters = trace.take()["counters"]
+    finally:
+        trace.disable()
+    path = "fused" if device.type == "cuda" else "leafwise"
+    if counters != {f"optim.adamw.{path}": 1}:
+        raise AssertionError(f"[adamw] update_ counted {counters}")
+    for got, want in ((p, want_p), (st.m, want_s.m), (st.v, want_s.v)):
+        if not all(_same_bits(got[k], want[k]) for k in got):
+            raise AssertionError("[adamw] update_ differs from update with "
+                                 "the clip off")
+    record["update_vs_update_"] = "bit for bit"
+    if device.type != "cuda":
+        print("[adamw] " + json.dumps(record))
+        return record
+
+    combos = [((pdt, gdt), mdt) for pdt in (torch.float32, torch.bfloat16)
+              for gdt in (torch.float32, torch.bfloat16)
+              for mdt in ("float32", "bfloat16")]
+    gnorm = torch.tensor(2.5, device=device)
+    for (dtypes, mdt), (n, offsets) in itertools.product(combos, ADAMW_CASES):
+        cfg = OptimConfig(lr=1e-2, warmup_steps=1, total_steps=10,
+                          moment_dtype=mdt)
+        k = adamw._scalars(cfg, gnorm, count)
+        p, g, m, v = _adamw_leaves(cfg, dtypes, n, offsets, device,
+                                   record["cases"])
+        want = adamw._leaf(cfg, p, g, m, v, *k)
+        adamw_fused.Leaves(torch_dtype(mdt), [p], [g], [m], [v]).update(
+            cfg, *k)
+        geo = adamw_fused.library()
+        layout = adamw_fused.vector_layout(
+            [(t.data_ptr(), t.element_size()) for t in (p, g, m, v)], n,
+            geo.vec, geo.align)
+        if not all(_same_bits(a, b) for a, b in zip((p, m, v), want)):
+            raise AssertionError(
+                f"[adamw] fused != leafwise: {dtypes} moments {mdt}, n {n}, "
+                f"offsets {offsets}, layout {layout}")
+        record["cases"] += 1
+    record["layouts"] = "every case bit for bit"
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    grads = [_adamw_view(n, off, dt, device, gen, 3.0)
+             for (n, (off, *_)), dt in itertools.product(
+                 ADAMW_CASES, (torch.float32, torch.bfloat16))]
+    # the gradients alone matter to the norm; float32 moments beside them
+    moments = [torch.zeros_like(x, dtype=torch.float32) for x in grads]
+    norms = [adamw_fused.Leaves(torch.float32, grads, grads, moments,
+                                moments).norm() for _ in range(2)]
+    exact = math.sqrt(sum(float(x.double().square().sum()) for x in grads))
+    rel = abs(float(norms[0]) - exact) / exact
+    if rel > ADAMW_NORM_RTOL or not _same_bits(*norms):
+        raise AssertionError(f"[adamw] norm {float(norms[0])} against "
+                             f"{exact} (rel {rel:.3g}), repeated "
+                             f"{float(norms[1])}")
+    record["norm_rel_err"] = rel
+    record["norm_rel_err_torch"] = abs(
+        float(adamw.global_norm(dense(grads))) - exact) / exact
+
+    cfg = OptimConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    runs = []
+    for _ in range(2):
+        p, g, st = small_state(cfg, 21, 3.0)
+        _, _, metrics = adamw.update_(cfg, g, st, p)
+        runs.append([metrics["grad_norm"], *p.values(), *st.m.values(),
+                     *st.v.values()])
+    if not all(_same_bits(a, b) for a, b in zip(*runs)):
+        raise AssertionError("[adamw] two runs of update_ differ")
+    record["run_to_run"] = "same bits"
+
+    # the host's time to issue one update_ of 11 leaves (the dense
+    # decoder's tree), each call after a synchronise
+    leaves = [_adamw_leaves(cfg, (torch.bfloat16, torch.bfloat16), 4099,
+                            (0, 0, 0, 0), device, 40 + i) for i in range(11)]
+    p, g, m, v = (dense(x) for x in zip(*leaves))
+    st = OptState(m, v, count.clone())
+    host_us = []
+    for _ in range(20):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        adamw.update_(cfg, g, st, p)
+        host_us.append((time.perf_counter() - t1) * 1e6)
+    record["host_us_11_leaves"] = statistics.median(host_us[2:])
+
+    record["granite"] = _adamw_granite(device)
+    record["s"] = time.perf_counter() - t0
+    print("[adamw] " + json.dumps(record))
+    return record
+
+
+def _adamw_granite(device):
+    """[adamw] on granite-3-2b's own leaves, the tree [train]'s full-depth
+    steps update (bf16 projections and embedding with bf16 gradients,
+    float32 norm scales and gradients, float32 moments): the fused norm
+    against a float64 one and the same bits twice; one update_ counted
+    (2 L + 1 launches) and timed against the leafwise step, in turns, beside
+    its byte bound; then each leaf's update bit for bit against ``_leaf``
+    given the same scalars."""
+    from repro_torch.optim import adamw
+    torch.cuda.empty_cache()
+    cfg = OptimConfig()
+    mdt = torch_dtype(cfg.moment_dtype)
+    model = get_model_config("granite-3-2b")
+    gen = torch.Generator(device=device).manual_seed(7)
+    p, g, m, v = ({}, {}, {}, {})
+    for key, leaf in zip(tree_paths(model_defs(model)),
+                         tree_leaves(abstract_model(model))):
+        n = leaf.numel()
+        p[key] = _adamw_view(n, 0, leaf.dtype, device, gen).view(leaf.shape)
+        g[key] = _adamw_view(n, 0, leaf.dtype, device, gen, 3e-4).view(
+            leaf.shape)
+        m[key] = _adamw_view(n, 0, mdt, device, gen, 1e-4).view(leaf.shape)
+        v[key] = _adamw_view(n, 0, mdt, device, gen, 1e-8,
+                             nonneg=True).view(leaf.shape)
+    st = OptState(m, v, torch.tensor(3, dtype=torch.int32, device=device))
+    leaves = [tree_leaves(t) for t in (p, g, m, v)]
+    n_params = sum(x.numel() for x in leaves[0])
+    # the norm: float64 leaf by leaf, the fused passes twice
+    exact = math.sqrt(sum(float(x.double().square().sum())
+                          for x in leaves[1]))
+    norms = [adamw_fused.Leaves(mdt, *leaves).norm() for _ in range(2)]
+    rel = abs(float(norms[0]) - exact) / exact
+    if rel > ADAMW_NORM_RTOL or not _same_bits(*norms):
+        raise AssertionError(f"[adamw] granite-3-2b norm {float(norms[0])} "
+                             f"against {exact} (rel {rel:.3g}), repeated "
+                             f"{float(norms[1])}")
+    rec = {"config": "granite-3-2b", "leaves": len(leaves[0]),
+           "params": n_params, "largest_leaf": max(x.numel()
+                                                   for x in leaves[0]),
+           "norm_rel_err": rel}
+    zero_counts()
+    adamw.update_(cfg, g, st, p)
+    rec["launches"] = _adamw_launches(read_counts(), 1, len(leaves[0]),
+                                      device, "[adamw] granite-3-2b")
+
+    def leafwise():
+        gn = adamw.global_norm(g)
+        k = adamw._scalars(cfg, gn, st.count)
+        for x, y, a, b in zip(*leaves):
+            new_p, new_m, new_v = adamw._leaf(cfg, x, y, a, b, *k)
+            x.copy_(new_p)
+            a.copy_(new_m)
+            b.copy_(new_v)
+            del new_p, new_m, new_v
+
+    ms = {"fused": [], "leafwise": []}
+    fns = {"fused": lambda: adamw.update_(cfg, g, st, p),
+           "leafwise": leafwise}
+    for name in ("fused", "leafwise", "fused", "leafwise", "fused"):
+        ms[name].append(_elapsed_ms(fns[name], device)[1])
+    # read p, g, m, v and write p, m, v in the update; read g in the norm
+    nbytes = sum(x.numel() * (2 * x.element_size() + 2 * y.element_size()
+                              + 4 * mdt.itemsize)
+                 for x, y in zip(leaves[0], leaves[1]))
+    bound_ms = nbytes / H100_SXM.hbm_bw * 1e3
+    rec.update({"fused_ms": min(ms["fused"]), "fused_ms_all": ms["fused"],
+                "leafwise_ms": min(ms["leafwise"]),
+                "leafwise_ms_all": ms["leafwise"], "bytes": nbytes,
+                "bound_ms": bound_ms,
+                "share_of_bound": bound_ms / min(ms["fused"])})
+    # each leaf bit for bit, given the same scalars
+    k = adamw._scalars(cfg, adamw.global_norm(g), st.count)
+    for key, x, y, a, b in zip(sorted(p), *leaves):
+        want = adamw._leaf(cfg, x, y, a, b, *k)
+        adamw_fused.Leaves(mdt, [x], [y], [a], [b]).update(cfg, *k)
+        if not all(_same_bits(u, w) for u, w in zip((x, a, b), want)):
+            raise AssertionError(f"[adamw] granite-3-2b {key} "
+                                 f"{tuple(x.shape)} {x.dtype}: fused != "
+                                 f"leafwise")
+        del want
+    rec["leaves_bit_for_bit"] = len(leaves[0])
+    del p, g, m, v, st, leaves
+    torch.cuda.empty_cache()
+    return rec
+
+
 def _grads(cfg, params, batch, run=None):
     """(loss, metrics, grads) of ``loss_fn`` on ``params``' leaves."""
     live = tree_map(lambda t: t.detach().requires_grad_(True), params)
@@ -3220,9 +3499,13 @@ def _train_full(device, tmp, full, ckpt_full):
     sync(device)
     resident = (torch.cuda.memory_allocated() if device.type == "cuda"
                 else 0)
+    zero_counts()
     t0 = time.perf_counter()
     ms, prof = _timed_steps(trainer, TRAIN_STEPS, device, profile_last=True)
     wall = time.perf_counter() - t0
+    launches = _adamw_launches(read_counts(), TRAIN_STEPS,
+                               len(tree_leaves(trainer.params)), device,
+                               "[train] full depth")
     losses = [h["loss"] for h in trainer.history]
     med = float(np.median(ms[1:]))              # the first step warms up
     compute_ms, opt_ms = train_bound_ms(cfg, seq * gb, seq, gb)
@@ -3236,7 +3519,8 @@ def _train_full(device, tmp, full, ckpt_full):
            "bound_optimizer_ms": opt_ms,
            "bound_share": (compute_ms + opt_ms) / med,
            "resident_gib": resident / 2 ** 30,
-           "traffic": step_traffic(cfg, seq, gb)}
+           "traffic": step_traffic(cfg, seq, gb),
+           "adamw_launches": launches}
     if device.type == "cuda":
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         kernels, copies, us = _device_ops(prof)
@@ -3465,8 +3749,10 @@ def _train_launcher_and_mamba(device, tmp, full):
 def phase_train(device, tmp, full, ckpt_full=True):
     """The training path, five parts (PERF.md §6): card against CPU,
     granite-3-2b at full depth through Trainer, the RunConfig variants,
-    crash and restore, the launcher and mamba2-130m.  No kernel of the
-    four runs on it: their counts are read around the whole phase."""
+    crash and restore, the launcher and mamba2-130m.  Of this repo's
+    kernels only AdamW's passes run on it: their launches are checked
+    around the full-depth steps, and every count is read around the
+    whole phase."""
     zero_counts()
     record = {}
     t0 = time.perf_counter()
@@ -3806,9 +4092,14 @@ def dist_main(full):
             tr = _dist_trainer(cfg, device, m, os.path.join(tmp, name),
                                DIST_STEPS, seq, gb)
             tr.init_state()
+            zero_counts()
             ms, _ = _timed_steps(tr, DIST_STEPS, device, profile_last=False)
             leaf = tree_leaves(tr.params)[0]
             rec[name] = {"losses": [h["loss"] for h in tr.history],
+                         "adamw_launches": _adamw_launches(
+                             read_counts(), DIST_STEPS,
+                             len(tree_leaves(tr.params)), device,
+                             f"[dist] {name}"),
                          "step_ms": ms,
                          "step_ms_median": float(np.median(ms[1:])),
                          "peak_gib": _peak(device),
@@ -4041,7 +4332,8 @@ def phase_distribution(device, full, train_rec, collected):
     """[dist] in a spawned process; then the lines of [dryrun] and
     [sharding-tune], whose processes started with the script (neither
     touches the card) and were ``collected`` (collect_background) before
-    the conv search.  No kernel of the four runs on them (each process
+    the conv search.  Of this repo's kernels only AdamW's passes run on
+    them, in [dist]'s trainers (each process
     reads its own counts around its phase, ``counted``)."""
     record = dict(collected)
     t0 = time.perf_counter()
@@ -4281,6 +4573,7 @@ def main(argv=None):
                                           full=not args.rehearse)),
             ("serve_families", lambda: phase_serve_families(
                 device, full=not args.rehearse)),
+            ("adamw", lambda: phase_adamw(device)),
             ("train", lambda: phase_train(device, tmp,
                                           full=not args.rehearse)),
             ("distribution", lambda: phase_distribution(
@@ -4361,6 +4654,17 @@ def main(argv=None):
             "max_abs_err": k["max_abs_err"], "ms": k["ms"],
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"]})
+    # AdamW's passes on granite-3-2b's tree: no TPU kernel (XLA fuses the
+    # JAX optimizer); launches a step, bit for bit against the leafwise
+    # step, whose ms is the plain one (none on the CPU)
+    ag = new["adamw"].get("granite", {})
+    line["kernels"].append({
+        "name": "adamw", "route": "cuda", "source": SOURCES["adamw"],
+        "replaces": None,
+        "launches": sum(ag["launches"].values()) if ag else None,
+        "max_abs_err": 0.0 if ag else None, "ms": ag.get("fused_ms"),
+        "plain_ms": ag.get("leafwise_ms"), "bound_ms": ag.get("bound_ms"),
+        "bound_by": "bytes" if ag else None, "library_ms": None})
     out_dir = os.path.join(ROOT, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

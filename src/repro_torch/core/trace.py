@@ -20,11 +20,14 @@ nest per thread: the tuner compiles on a thread pool.  While a
 ``record_function(name)``, so it appears among the profiler's host events
 on the device trace's clock.
 
-Span names, and the counter ``registry.lookup.<provenance>``, are the
-contract with whoever reads them: ``train.step``, ``train.host_read``
-(``train/trainer.py``); ``train.forward``, ``train.backward``,
-``train.update`` (``dist/step.py``); ``op.matmul``,
-``op.flash_attention``, ``op.conv2d`` (``kernels/*/ops.py``);
+Span names, and the counters ``registry.lookup.<provenance>``
+(``core/registry.py``) and ``optim.adamw.fused`` /
+``optim.adamw.leafwise`` (``optim/adamw.py`` ``update_``, one a call, by
+the path it took), are the contract with whoever reads them:
+``train.step``, ``train.host_read`` (``train/trainer.py``);
+``train.forward``, ``train.backward``, ``train.update``
+(``dist/step.py``); ``op.matmul``, ``op.flash_attention``, ``op.conv2d``
+(``kernels/*/ops.py``);
 ``registry.lookup`` (``core/registry.py``); ``build.load``
 (``kernels/build.py``); ``kernel.launch`` (each build's ``_launch``);
 ``tune.inputs`` (``core/evaluators.py``); ``tune.compile``,

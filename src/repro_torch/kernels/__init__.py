@@ -20,5 +20,8 @@ __all__ = ["attention", "conv2d", "launch_counts", "matmul"]
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel's launch count in this process, by counter name."""
-    return {**matmul.LAUNCHES, **conv2d.LAUNCHES, **attention.LAUNCHES}
+    """Every kernel's launch count in this process, by counter name: the
+    three families' and AdamW's passes (``repro_torch.optim.fused``)."""
+    from ..optim import fused      # the optimizer imports this package
+    return {**matmul.LAUNCHES, **conv2d.LAUNCHES, **attention.LAUNCHES,
+            **fused.LAUNCHES}

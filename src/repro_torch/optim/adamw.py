@@ -7,10 +7,22 @@ float32 tensors (Python floats are float64 and would move the last bits),
 each leaf's step in float32, cast back to the parameter and moment dtypes.
 
 ``update`` returns new trees, as the JAX function does.  ``update_``
-writes the same values into the given tensors under ``torch.no_grad()``,
-leaf by leaf, and returns them: the port's counterpart of the JAX
-trainer's donated buffers, so a train step never holds two copies of the
-parameters and moments.
+writes the same values into the given tensors under ``torch.no_grad()``
+and returns them: the port's counterpart of the JAX trainer's donated
+buffers, so a train step never holds two copies of the parameters and
+moments.  It takes one of two paths, chosen by where the leaves are and
+counted by ``core/trace.py``:
+
+- ``optim.adamw.leafwise``: no leaf on a CUDA device (CPU leaves, or
+  ``meta`` leaves that trace shapes; plain or DTensor): ``_leaf`` a leaf
+  in PyTorch operations;
+- ``optim.adamw.fused``: any other tree, plain or DTensor leaves on one
+  CUDA device: two hand-written CUDA passes (``fused.py``,
+  ``csrc/adamw.cu``), the norm and then each leaf's step in one read and
+  one write, bit for bit ``_leaf``'s given the same scalars, with no host
+  synchronisation.  What the passes do not take (another dtype, a
+  non-contiguous parameter or moment, leaves on two devices) raises
+  ``ValueError``.
 
 ``moment_dtype='bfloat16'`` halves optimizer memory (the giant-MoE
 configs use it).
@@ -24,6 +36,8 @@ from typing import Any, Dict, NamedTuple, Tuple
 
 import torch
 
+from . import fused
+from ..core import trace
 from ..models.params import torch_dtype, tree_leaves, tree_map
 
 
@@ -92,10 +106,10 @@ def global_norm(tree: Any) -> torch.Tensor:
                           for l in tree_leaves(tree)))
 
 
-def _scalars(cfg: OptimConfig, grads: Any, count: torch.Tensor):
-    """(grad norm, clip scale, lr, c1, c2) for the step that makes the
-    count ``count``; float32 tensors."""
-    gnorm = global_norm(grads)
+def _scalars(cfg: OptimConfig, gnorm: torch.Tensor, count: torch.Tensor):
+    """(clip scale, lr, c1, c2) for the step that makes the count
+    ``count`` with the gradients' global norm ``gnorm``; float32
+    tensors."""
     if cfg.clip_norm:
         scale = torch.where(gnorm > cfg.clip_norm, cfg.clip_norm / gnorm,
                             torch.ones_like(gnorm))
@@ -105,7 +119,7 @@ def _scalars(cfg: OptimConfig, grads: Any, count: torch.Tensor):
     b1, b2 = cfg.betas
     c1 = 1.0 - b1 ** count.to(torch.float32)
     c2 = 1.0 - b2 ** count.to(torch.float32)
-    return gnorm, scale, lr, c1, c2
+    return scale, lr, c1, c2
 
 
 def _leaf(cfg: OptimConfig, p, g, m, v, scale, lr, c1, c2):
@@ -128,7 +142,8 @@ def update(cfg: OptimConfig, grads: Any, state: OptState, params: Any
     arguments are left as they were."""
     with torch.no_grad():
         count = state.count + 1
-        gnorm, *k = _scalars(cfg, grads, count)
+        gnorm = global_norm(grads)
+        k = _scalars(cfg, gnorm, count)
         out = tree_map(lambda p, g, m, v: _leaf(cfg, p, g, m, v, *k),
                        params, grads, state.m, state.v)
         pick = lambda i: tree_map(lambda o: o[i], out)
@@ -139,13 +154,23 @@ def update(cfg: OptimConfig, grads: Any, state: OptState, params: Any
 def update_(cfg: OptimConfig, grads: Any, state: OptState, params: Any
             ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """``update``'s values written into ``params``, ``state.m``,
-    ``state.v`` and ``state.count``, one leaf at a time; returns
-    (params, state, metrics), the same objects."""
+    ``state.v`` and ``state.count``, by the fused passes or one leaf at a
+    time (the module's note says which); returns (params, state,
+    metrics), the same objects."""
     with torch.no_grad():
         state.count.add_(1)
-        gnorm, *k = _scalars(cfg, grads, state.count)
-        for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
-                              tree_leaves(state.m), tree_leaves(state.v)):
+        leaves = [tree_leaves(t) for t in (params, grads, state.m, state.v)]
+        if any(t.device.type == "cuda" for ts in leaves for t in ts):
+            plan = fused.Leaves(torch_dtype(cfg.moment_dtype), *leaves)
+            trace.count("optim.adamw.fused")
+            gnorm = plan.norm()
+            k = _scalars(cfg, gnorm, fused.local(state.count))
+            plan.update(cfg, *k)
+            return params, state, {"grad_norm": gnorm, "lr": k[1]}
+        trace.count("optim.adamw.leafwise")
+        gnorm = global_norm(grads)
+        k = _scalars(cfg, gnorm, state.count)
+        for p, g, m, v in zip(*leaves):
             new_p, new_m, new_v = _leaf(cfg, p, g, m, v, *k)
             p.copy_(new_p)
             m.copy_(new_m)

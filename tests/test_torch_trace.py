@@ -200,6 +200,7 @@ def test_figures_of_synthetic_records():
     got = trace_cell.figures(
         phases(setup, window, segment, extra,
                {"registry.lookup.exact": 3, "registry.lookup.heuristic": 1,
+                "optim.adamw.fused": 1, "optim.adamw.leafwise": 3,
                 "other": 9}),
         {"busy_s": 0.8, "device_s_by_span": {"train.forward": 0.2,
                                              "train.backward": 0.4,
@@ -207,7 +208,8 @@ def test_figures_of_synthetic_records():
         skip_calls=1)
     expect = {"tune_inputs_s": 2.0, "tune_compile_s": 1.3,
               "tune_measure_s": 0.3, "train_issue_ms": 90.0,
-              "lookup_exact_pct": 75.0, "op_call_us": 900.0,
+              "lookup_exact_pct": 75.0, "adamw_fused_pct": 25.0,
+              "op_call_us": 900.0,
               "op_lookup_us": 100.0, "op_build_us": 50.0,
               "op_launch_us": 300.0, "train_fwd_ms": 100.0,
               "train_bwd_ms": 200.0, "train_update_ms": 50.0,
@@ -270,7 +272,7 @@ def tiny_files(name):
 
 
 @pytest.mark.parametrize("name, figures", [
-    ("granite-3-2b.train", {"train_issue_ms"}),
+    ("granite-3-2b.train", {"train_issue_ms", "adamw_fused_pct"}),
     ("granite-3-2b.gemm-bf16", {"tune_inputs_s", "tune_compile_s",
                                 "tune_measure_s", "lookup_exact_pct",
                                 "op_call_us", "op_lookup_us"}),
@@ -281,9 +283,12 @@ def test_a_cpu_run_of_a_cell_reads_every_figure_the_cpu_has(
                               str(tmp_path), files=tiny_files(name))
     assert out["correct"] is True, out["checks"]
     assert set(out["figures"]) == figures
+    # CPU leaves take AdamW's leafwise step: the fused share reads 0
+    assert out["figures"].pop("adamw_fused_pct", 0.0) == 0.0
     assert all(np.isfinite(v) and v > 0 for v in out["figures"].values())
     assert trace._on is False
     if name.endswith(".train"):
+        assert out["counters"]["window"]["optim.adamw.leafwise"] > 0
         assert {"train.forward", "train.backward", "train.update"} \
             <= set(out["trace"]["span_host_events"])
     else:

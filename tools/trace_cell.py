@@ -110,6 +110,9 @@ def figures(records: Dict[str, Dict], trace_out: Dict,
       its length less its ``train.host_read``;
     - ``lookup_exact_pct``: 100 x ``registry.lookup.exact`` over every
       ``registry.lookup.*`` count of the window;
+    - ``adamw_fused_pct``: 100 x ``optim.adamw.fused`` over it and
+      ``optim.adamw.leafwise`` in the window (the share of AdamW steps the
+      fused passes took);
     - ``op_call_us``, ``op_lookup_us``, ``op_build_us``, ``op_launch_us``:
       the mean over the op calls of the measurements after the window,
       less the first ``skip_calls``, of the call's span and of its
@@ -137,6 +140,10 @@ def figures(records: Dict[str, Dict], trace_out: Dict,
         out["lookup_exact_pct"] = (100.0 * lookups.get("registry.lookup.exact",
                                                        0)
                                    / sum(lookups.values()))
+    paths = [window["counters"].get(f"optim.adamw.{path}", 0)
+             for path in ("fused", "leafwise")]
+    if sum(paths):
+        out["adamw_fused_pct"] = 100.0 * paths[0] / sum(paths)
     extra = records["extra"]["spans"]
     calls = [s for s in extra if s.name.startswith("op.")][skip_calls:]
     if calls:
