@@ -2,8 +2,8 @@
 in one process: the numbers compared of sound runs of the program over
 many seeds (the lower readings), and of the control, the reference put in
 the program's place and computed in the precision below the one the
-configuration states (the upper readings); for a training cell also of
-the reference with each planted fault.
+configuration states (the upper readings); also of the reference with
+each fault its driver's ``REFERENCE_FAULTS`` names.
 
     python gpubench/control.py --workload <cell> --seeds 1 2 3 ... \\
         --control-seeds 7 8 9 [--seconds 2] [--out FILE]
@@ -26,8 +26,6 @@ sys.path[:0] = [os.path.join(os.path.dirname(os.path.dirname(
 
 #: the precision the control computes in, by the configuration's type
 BELOW = {"bfloat16": "float8_e4m3fn"}
-#: faults read on a training cell, planted in the reference
-TRAIN_FAULTS = ("half_batch", "grad_double")
 
 
 def readings(name, seeds, control_seeds, seconds, device, tmpdir):
@@ -70,13 +68,12 @@ def readings(name, seeds, control_seeds, seconds, device, tmpdir):
         free()
         print("control", below, seed, json.dumps(out["control"][seed]),
               flush=True)
-        if work["driver"] == "train_step":
-            for fault in TRAIN_FAULTS:
-                out["faults"].setdefault(fault, {})[seed] = driver.control(
-                    new_run(seed), "float32", fault)
-                free()
-                print("fault", fault, seed,
-                      json.dumps(out["faults"][fault][seed]), flush=True)
+        for fault in getattr(driver, "REFERENCE_FAULTS", ()):
+            out["faults"].setdefault(fault, {})[seed] = driver.control(
+                new_run(seed), "float32", fault)
+            free()
+            print("fault", fault, seed,
+                  json.dumps(out["faults"][fault][seed]), flush=True)
     return out
 
 

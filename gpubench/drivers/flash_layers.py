@@ -75,6 +75,18 @@ class Cell(opstream.OpStream):
         return {"out_err": worst}
 
 
+def tiny(cfg: Dict, t: Dict):
+    """A size a CPU test holds: 4 query heads over 1 KV head of 32 at 64
+    positions, a search of 4 points, 2 input sets, 2 traced calls."""
+    cfg.update(num_attention_heads=4, num_key_value_heads=1, head_dim=32)
+    t.update(seq_len=64, budget=4, trace_calls=2, input_sets=2)
+    return cfg, t
+
+
+#: plant(monkeypatch) of each fault the window's calls can have
+FAULTS = opstream.FAULTS
+
+
 def control(run, precision: str) -> Dict[str, float]:
     """The number compared where the reference computed in ``precision``
     stands in the program's place, on as many calls as a run samples,

@@ -66,6 +66,18 @@ class Cell(opstream.OpStream):
         return {"out_err": worst}
 
 
+def tiny(cfg: Dict, t: Dict):
+    """A size a CPU test holds: a small dense decoder's products at 64
+    tokens, a search of 4 points, 2 samples a product."""
+    cfg.update(traffic.TINY_LM)
+    t.update(tokens=64, budget=4, samples_per_product=2)
+    return cfg, t
+
+
+#: plant(monkeypatch) of each fault the window's calls can have
+FAULTS = opstream.FAULTS
+
+
 def control(run, precision: str) -> Dict[str, float]:
     """The number compared where the reference computed in ``precision``
     stands in the program's place, on as many calls a product as a run

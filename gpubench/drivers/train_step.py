@@ -11,6 +11,11 @@ the trainer's own state: the step's loss, after the first the norm of
 each leaf's gradient as AdamW took it (its first moment over 1 - beta1),
 and after the last the norm of each leaf's change.  The window then goes
 on with the same trainer, the same call and the same feed.
+
+For the CPU tests it declares ``tiny`` (the size a test holds) and
+``FAULTS`` (faults planted in the timed path, each of which must make a
+run not correct), and ``REFERENCE_FAULTS``, the faults ``control`` can
+plant in the reference.
 """
 
 from __future__ import annotations
@@ -168,6 +173,54 @@ def readings_gaps(losses, grad, change, ref) -> Dict[str, float]:
             "grad_gap": checks.leaf_gap(grad, ref["grad"]),
             "update_gap": checks.leaf_gap(
                 change, ref["change"], checks.moving_leaves(ref["grad"]))}
+
+
+def tiny(cfg: Dict, t: Dict):
+    """A size a CPU test holds: a small dense decoder, 4 x 16 tokens a
+    step, 4 batches."""
+    cfg.update(traffic.TINY_LM)
+    t.update(batch=4, seq_len=16, batches=4)
+    return cfg, t
+
+
+def _state_unchanged(monkeypatch) -> None:
+    """AdamW's update returns the parameters and state as they were."""
+    from repro_torch.optim import adamw
+
+    def update_(cfg, grads, state, params):
+        return params, state, {"grad_norm": torch.zeros(()),
+                               "lr": torch.zeros(())}
+    monkeypatch.setattr(adamw, "update_", update_)
+
+
+def _half_batch(monkeypatch) -> None:
+    """The loss is the mean over the first half of the batch's rows."""
+    from repro_torch.dist import step
+    loss_fn = step.loss_fn
+
+    def half(cfg, params, batch, run=None, **kw):
+        rows = next(iter(batch.values())).shape[0] // 2
+        return loss_fn(cfg, params, {k: v[:rows] for k, v in batch.items()},
+                       run, **kw)
+    monkeypatch.setattr(step, "loss_fn", half)
+
+
+def _gradient_altered(monkeypatch) -> None:
+    """The query projection's gradient reaches AdamW doubled."""
+    from repro_torch.optim import adamw
+    update_ = adamw.update_
+
+    def altered(cfg, grads, state, params):
+        grads["blocks"]["attn"]["wq"] = grads["blocks"]["attn"]["wq"] * 2
+        return update_(cfg, grads, state, params)
+    monkeypatch.setattr(adamw, "update_", altered)
+
+
+#: plant(monkeypatch) of each fault the timed path can have
+FAULTS = {"state_unchanged": _state_unchanged, "half_batch": _half_batch,
+          "gradient_altered": _gradient_altered}
+#: the faults ``control`` plants in the reference (``dense_lm``)
+REFERENCE_FAULTS = ("half_batch", "grad_double")
 
 
 def control(run, precision: str = "float32", fault=None) -> Dict[str, float]:

@@ -15,9 +15,17 @@ defines ``Cell(run)``, whose constructor is the set-up, with:
 - ``segment()``: a short steady stretch of the same work, which the
   harness traces;
 - ``extra()``: per-layer measurements taken after the window (traced runs
-  only);
+  only); a traced run then runs ``segment()`` again with the port's
+  spans and counters recording (``spans.py``), as set-up ran;
 - ``release()`` and ``check()``: free the program's state, then compare
   with the reference and return {number: value}.
+
+Beside ``Cell`` it defines ``control(run, precision[, fault])``, the
+numbers compared where the reference stands in the program's place;
+``tiny(cfg, traffic)``, the cell at a size a CPU test holds; ``FAULTS``,
+{name: plant(monkeypatch)} of the faults its timed path can have; and,
+where ``control`` takes them, ``REFERENCE_FAULTS``.  So a new model's
+cell joins with new files only.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from . import checks
+from . import checks, spans
 
 BENCH_DIR = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH_DIR)
@@ -52,11 +60,16 @@ def spec() -> Dict[str, Any]:
 
 
 def load_module(kind: str, name: str):
-    """``gpubench/<kind>/<name>.py`` as a module (names may hold dots)."""
+    """``gpubench/<kind>/<name>.py`` as a module (names may hold dots),
+    loaded once a process: a fault a test plants in a driver's own module
+    is the one its run calls."""
     path = os.path.join(BENCH_DIR, kind, name + ".py")
     if not os.path.isfile(path):
         raise FileNotFoundError(path)
     mod_name = f"gpubench.{kind}." + name.replace(".", "_").replace("-", "_")
+    mod = sys.modules.get(mod_name)
+    if mod is not None and getattr(mod, "__file__", None) == path:
+        return mod
     sp = importlib.util.spec_from_file_location(mod_name, path)
     mod = importlib.util.module_from_spec(sp)
     sys.modules[mod_name] = mod
@@ -107,7 +120,8 @@ def nvidia_smi(fields: str) -> Optional[str]:
 class Run:
     """What a driver gets: the cell's files, the seed, the device, the
     run's temporary directory, and places to record the set-up split,
-    spans (host seconds of calls into a layer) and counters."""
+    spans (host seconds of calls into a layer, the driver's own and, in a
+    traced run, the port's) and counters."""
 
     def __init__(self, name: str, work: Dict, cfg: Dict, seed: int,
                  seconds: float, trace: bool, device: torch.device,
@@ -239,8 +253,17 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         run.log(f"card {kind}; " + str(nvidia_smi("name,power.limit")))
     else:
         kind = "cpu"
-    cell = driver.Cell(run)
-    run.sync()
+    rec = spans.recorder() if trace else None
+    if rec is not None:
+        rec.take()
+        rec.enable()
+    try:
+        cell = driver.Cell(run)
+        run.sync()
+    finally:
+        if rec is not None:
+            rec.disable()
+            spans.keep(run, rec.take(), spans.SETUP)
     run.log("set-up s " + json.dumps(run.phases))
     run.log("clocks before the window: " + str(nvidia_smi(
         "clocks.sm,clocks.max.sm,temperature.gpu,power.draw")))
@@ -257,6 +280,11 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
         run.log("trace " + json.dumps(
             {k: v for k, v in trace_out.items() if k != "breakdown"}))
         cell.extra()
+        if rec is not None:
+            by_span = spans.recorded_segment(run, cell, rec)
+            if by_span is not None:
+                trace_out["device_s_by_span"] = by_span
+                run.log("device s by span " + json.dumps(by_span))
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == "cuda" else 0)
     cell.release()

@@ -17,3 +17,14 @@ def roofline_pct(r, driver: str):
     if r.driver != driver or not bound or not device:
         return None
     return 100.0 * bound / device
+
+
+def device_ms_per_step(r, span: str):
+    """Device ms a step of the kernels launched under ``span`` in the
+    recorded segment (``gpubench/spans.py``); None without a device trace,
+    a recorded step or a kernel under it."""
+    steps = len(r.spans.get("train.step", ()))
+    seconds = r.trace.get("device_s_by_span", {}).get(span)
+    if not steps or not seconds:
+        return None
+    return seconds * 1e3 / steps

@@ -11,6 +11,8 @@ import random
 import time
 from typing import Any, Callable, Dict, List, Tuple
 
+import torch
+
 from gpubench import roofline
 
 
@@ -146,3 +148,42 @@ class OpStream:
 
     def release(self) -> None:
         self.calls = []
+
+
+def _broken(change: Callable):
+    """plant(monkeypatch): once set-up's warm-up has run (the search
+    measured the sound kernel), every call of the window returns
+    ``change`` of the op's output."""
+    def plant(monkeypatch) -> None:
+        warm = OpStream.warm_up
+
+        def warm_then_break(self) -> None:
+            warm(self)
+            self.calls = [dataclasses.replace(
+                c, fn=lambda *a, _fn=c.fn: change(_fn(*a)))
+                for c in self.calls]
+        monkeypatch.setattr(OpStream, "warm_up", warm_then_break)
+    return plant
+
+
+def _unwritten(out):
+    return torch.zeros_like(out)
+
+
+def _half_rows(out):
+    out = out.clone()
+    out[..., out.shape[-2] // 2:, :] = 0
+    return out
+
+
+def _row_altered(out):
+    out = out.clone()
+    out[..., 0, :] = out[..., out.shape[-2] // 2, :]
+    return out
+
+
+#: the faults an op cell's window can have: an output never written, half
+#: its rows left out, one row of the answer altered where it is produced
+FAULTS = {"output_unwritten": _broken(_unwritten),
+          "half_rows_left_out": _broken(_half_rows),
+          "answer_altered": _broken(_row_altered)}

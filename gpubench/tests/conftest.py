@@ -28,12 +28,6 @@ def card():
     return torch.device("cuda", 0)
 
 
-#: a small dense decoder of the configurations' shape
-TINY_LM = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
-               num_key_value_heads=2, head_dim=16, intermediate_size=128,
-               vocab_size=97)
-
-
 def cell_names():
     """Every cell file under gpubench/workloads, in BENCHMARK.json or not
     (a cell kept for a later PR is tested all the same)."""
@@ -42,29 +36,34 @@ def cell_names():
         os.path.join(harness.BENCH_DIR, "workloads")))
 
 
-def tiny_files(name, dtype=None):
-    """(entry, cell file, configuration) of cell ``name`` at a size a CPU
-    test holds; ``dtype`` replaces the weights' or the op's type.  The
-    configuration is ``configs/<name up to its last dot>.json``."""
+def cell_file(name):
+    """The parsed ``workloads/<name>.json``."""
     from gpubench import harness
-    work = harness.load_json(os.path.join(harness.BENCH_DIR, "workloads",
+    return harness.load_json(os.path.join(harness.BENCH_DIR, "workloads",
                                           name + ".json"))
+
+
+def driver_of(name):
+    """The driver module that cell ``name``'s file names."""
+    from gpubench import harness
+    return harness.load_module("drivers", cell_file(name)["driver"])
+
+
+def tiny_files(name, dtype=None):
+    """(entry, cell file, configuration) of cell ``name`` at the size its
+    driver's ``tiny`` gives; ``dtype`` replaces the op's type where the
+    traffic states one, else the weights'.  The configuration is
+    ``configs/<name up to its last dot>.json``."""
+    from gpubench import harness
+    work = cell_file(name)
     cfg = harness.load_json(os.path.join(harness.BENCH_DIR, "configs",
                                          name.rsplit(".", 1)[0] + ".json"))
-    t = work["traffic"]
-    if work["driver"] == "train_step":
-        cfg.update(TINY_LM)
-        t.update(batch=4, seq_len=16, batches=4)
-        if dtype:
+    cfg, work["traffic"] = driver_of(name).tiny(cfg, work["traffic"])
+    if dtype:
+        if "dtype" in work["traffic"]:
+            work["traffic"]["dtype"] = dtype
+        else:
             cfg["torch_dtype"] = dtype
-    elif work["driver"] == "gemm_layers":
-        cfg.update(TINY_LM)
-        t.update(tokens=64, budget=4, samples_per_product=2)
-    else:
-        cfg.update(num_attention_heads=4, num_key_value_heads=1, head_dim=32)
-        t.update(seq_len=64, budget=4, trace_calls=2, input_sets=2)
-    if dtype and "dtype" in t:
-        t["dtype"] = dtype
     return None, work, cfg
 
 

@@ -5,10 +5,13 @@ cells' product and attention.  The weights' layout is the port's."""
 import pytest
 import torch
 
-from conftest import TINY_LM
+from conftest import driver_of
 from gpubench import traffic
-from gpubench.drivers import train_step
 from gpubench.reference import dense_lm, ops
+from gpubench.traffic import TINY_LM
+
+#: the driver of the cells this reference serves
+DRIVER = driver_of("granite-3-2b.train")
 
 CFG = dict(TINY_LM, name="tiny", hidden_act="silu", torch_dtype="float32",
            rms_norm_eps=1e-5, rope_theta=10000.0, tie_word_embeddings=False)
@@ -22,7 +25,7 @@ def test_weights_have_the_ports_layout(act, tied):
     cfg = dict(CFG, hidden_act=act, tie_word_embeddings=tied)
     ours = {p: s for p, (s, _, _) in traffic.dense_lm_specs(cfg).items()}
     ports = {p: d.shape for p, d in
-             tree_paths(model_defs(train_step.model_config(cfg))).items()}
+             tree_paths(model_defs(DRIVER.model_config(cfg))).items()}
     assert ours == ports
 
 
@@ -38,7 +41,7 @@ def test_loss_and_gradients_match_the_port(act, tied):
     ref = dense_lm.loss(cfg, live, tb["tokens"], tb["labels"])
     ref_g = torch.autograd.grad(ref, list(live.values()))
     port = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
-    loss, _ = loss_fn(train_step.model_config(cfg), traffic.nest(port), tb)
+    loss, _ = loss_fn(DRIVER.model_config(cfg), traffic.nest(port), tb)
     port_g = torch.autograd.grad(loss, list(port.values()))
     assert float(loss.detach()) == pytest.approx(float(ref.detach()), rel=1e-5)
     for a, b in zip(port_g, ref_g):
@@ -87,7 +90,7 @@ def test_train_readings_follow_the_port_through_three_steps():
     cfg = adamw.OptimConfig(**opt)
     params = traffic.nest({k: v.clone() for k, v in flat.items()})
     state = adamw.init(cfg, params)
-    step = make_train_step(train_step.model_config(CFG), RunConfig(), cfg)
+    step = make_train_step(DRIVER.model_config(CFG), RunConfig(), cfg)
     losses = []
     for i, b in enumerate(batches):
         params, state, metrics = step(params, state, b)

@@ -67,11 +67,10 @@ def test_every_path_a_run_sets_is_in_the_checkout_or_tmpdir(tmp_path,
     assert KERNEL_BUILD_DIR.startswith(harness.ROOT)
     # the trainer's checkpoint directory is the run's temporary one, and
     # no step of a window reaches its checkpoint interval
-    from conftest import tiny_files
+    from conftest import driver_of, tiny_files
     import torch
-    from gpubench.drivers import train_step
     r = harness.Run("granite-3-2b.train", *tiny_files("granite-3-2b.train")[1:],
                     1, 1.0, False, torch.device("cpu"), tmpdir)
-    cell = train_step.Cell(r)
+    cell = driver_of("granite-3-2b.train").Cell(r)
     assert cell.trainer.tc.ckpt_dir.startswith(tmpdir)
     assert cell.trainer.tc.ckpt_every >= 10 ** 9

@@ -8,6 +8,7 @@ import re
 
 import pytest
 
+from conftest import cell_names, driver_of
 from gpubench import harness
 
 SPEC = harness.spec()
@@ -94,6 +95,16 @@ def test_every_cell_resolves_to_its_files(entry):
     assert layer
     for m in layer:
         assert m["moves"] in e2e
+
+
+@pytest.mark.parametrize("name", cell_names())
+def test_every_driver_declares_its_cell_test_size_and_faults(name):
+    """What the tests and the control call of a cell file's driver, so that
+    a new driver needs no edit to them."""
+    driver = driver_of(name)
+    assert callable(driver.Cell) and callable(driver.control)
+    assert callable(driver.tiny)
+    assert driver.FAULTS and all(map(callable, driver.FAULTS.values()))
 
 
 @pytest.mark.parametrize("conf", SPEC["configs"], ids=lambda c: c["name"])

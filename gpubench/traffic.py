@@ -18,6 +18,13 @@ import numpy as np
 import torch
 
 
+#: a small dense decoder of the configurations' shape: the size at which
+#: the CPU tests run the dense cells (each driver's ``tiny``)
+TINY_LM = dict(hidden_size=64, num_hidden_layers=2, num_attention_heads=4,
+               num_key_value_heads=2, head_dim=16, intermediate_size=128,
+               vocab_size=97)
+
+
 def _stream_seed(seed: int, name: str) -> int:
     h = hashlib.sha256(f"{int(seed)}/{name}".encode()).digest()
     return int.from_bytes(h[:8], "little") >> 1
